@@ -1,0 +1,353 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. Print the card (``nvidia-smi`` name and power limit, torch's device
+   name) and build the kernels from ``src/repro_torch/kernels/csrc``.
+2. Hold the CUDA moments kernel against its plain PyTorch version on the
+   card, at the calibration shape of each Table 1 launch group and on a
+   ragged path-count case; check that two kernel runs are bitwise equal,
+   and that the card agrees with the CPU on a small input.
+3. Drive the main path: ``PricingSolver(table1_workload(), build_cluster())``
+   — 128 tasks of 256 steps on the 16 simulated Table 2 platforms plus the
+   local card — through characterise, allocate (MILP and heuristic) and
+   execute, counting kernel launches.
+4. Time the kernel, its plain version and the kernel's bound with CUDA
+   events at the calibration shapes, and print one ``{"kernels": [...]}``
+   line.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the reference package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ACCURACY = 0.05
+CALIB_PATHS = 65536
+CALIB_SEED = 10_007
+BLOCK_PATHS = 1024
+# kernel against plain version, both on the card: bit-equal Threefry draws
+# through the same CUDA math library, so only the float32 summation order
+# of the 1024-path block sums differs. rtol 3e-5 is the reference's own
+# kernel-vs-oracle bar.
+RTOL = 3e-5
+
+# The kernel's work per path-step, counted from csrc/mc_paths.cu, with each
+# transcendental call (logf, sqrtf, sincosf as two, expf) counted as one
+# operation so the bound is a true lower bound:
+#   int32: Threefry 2 key adds + 2 xors (k2) + 20 rounds x (add, rotate,
+#          xor) + 5 injections x 3 adds = 79; uniforms 2 shifts -> 81
+#   fp32:  uniforms 2 converts + 2 adds + 2 muls; Box-Muller log, mul,
+#          sqrt, mul, sin, cos, 2 muls; running sum, min, max -> 17, plus
+#          the step: BS mul, add, exp, mul = 4; Heston 21 (see the source)
+INT_OPS_PER_STEP = 81
+FP_OPS_PER_STEP = {"black-scholes": 17 + 4, "heston": 17 + 21}
+# Per path after the loop: avg divide, payoff (2 sub, 2 mul, 2 max,
+# 3 compares/selects), mask, sum, square, add -> 13.
+OPS_PER_PATH = 13
+# Peak rates of an H100 SXM (NVIDIA data sheet, at 700 W): 67 TFLOP/s fp32
+# outside the tensor cores, 3.35 TB/s HBM3. The table lists no int32 rate
+# outside the tensor cores, so int32 operations are charged at the fp32
+# rate, which keeps the bound a lower bound.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# bytes per task in (14 float32 params, task id, payoff kind, n_active)
+# and per (task, block) out (sum, sumsq)
+BYTES_IN_PER_TASK = 14 * 4 + 3 * 4
+BYTES_OUT_PER_BLOCK = 2 * 4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls, by CUDA
+    events around the whole run, after ``warmup`` untimed calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(model_kind: str, n_tasks: int, n_paths: int, n_steps: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, operations) for one launch."""
+    path_steps = n_tasks * n_paths * n_steps
+    ops = (path_steps * (INT_OPS_PER_STEP + FP_OPS_PER_STEP[model_kind])
+           + n_tasks * n_paths * OPS_PER_PATH)
+    n_bytes = (n_tasks * BYTES_IN_PER_TASK
+               + n_tasks * (n_paths // BLOCK_PATHS) * BYTES_OUT_PER_BLOCK)
+    t_ops = ops / PEAK_OPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import mc_paths
+    from repro_torch.pricing import mc
+    from repro_torch.pricing import (
+        PricingSolver,
+        TaskBatch,
+        build_cluster,
+        group_by_launch,
+        launch_key,
+        price_batch,
+        table1_workload,
+    )
+
+    # -- phase 1: the card and the build -----------------------------------
+    card = nvidia_smi("name,power.limit")
+    device_name = torch.cuda.get_device_name(0)
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: "
+        f"{device_name}; count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    ptxas = mc_paths.build()
+    log(f"built mc_paths.cu in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    dev = torch.device("cuda")
+    tasks = table1_workload()
+    check(len(tasks) == 128 and {t.n_steps for t in tasks} == {256},
+          "Table 1 workload is not 128 tasks of 256 steps")
+    groups = []
+    for key, group in group_by_launch(tasks):
+        groups.append((key, TaskBatch.from_tasks([t for _, t in group], dev)))
+
+    # -- phase 2: kernel against plain version on the card -----------------
+    t0 = time.perf_counter()
+    max_abs = max_rel = 0.0
+    rng = np.random.default_rng(12)
+    cases = []
+    for key, batch in groups:
+        full = np.full(batch.n_tasks, CALIB_PATHS, np.uint32)
+        cases.append((key, batch, full, CALIB_PATHS))
+    ragged_key, ragged_batch = groups[-1]
+    ragged = rng.integers(64, 20_000, size=ragged_batch.n_tasks).astype(np.uint32)
+    ragged_max = -(-int(ragged.max()) // BLOCK_PATHS) * BLOCK_PATHS
+    cases.append((ragged_key + ("ragged",), ragged_batch, ragged, ragged_max))
+    for key, batch, n_active, n_max in cases:
+        n_act = torch.from_numpy(n_active).to(dev)
+        got = mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
+        again = mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
+        want = mc_paths.mc_moments_batch_ref(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{key}: two kernel runs differ")
+        check(bool(torch.isfinite(got).all()), f"{key}: non-finite partials")
+        diff = (got - want).abs()
+        rel = diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
+        sums_rel = ((got.sum(1) - want.sum(1)).abs()
+                    / want.sum(1).abs().clamp_min(torch.finfo(torch.float32).tiny))
+        max_abs = max(max_abs, float(diff.max()))
+        max_rel = max(max_rel, float(rel.max()))
+        log(f"kernel vs plain {key}: partials {tuple(got.shape)} max abs "
+            f"{float(diff.max()):.3e} max rel {float(rel.max()):.3e}; summed "
+            f"moments max rel {float(sums_rel.max()):.3e}; bitwise repeat ok")
+        check(float(rel.max()) <= RTOL, f"{key}: partials differ beyond rtol {RTOL}")
+        check(float(sums_rel.max()) <= RTOL, f"{key}: moments differ beyond rtol {RTOL}")
+    # the card against the CPU on a small input with continuous payoffs
+    # (European, Asian: an ulp cannot flip a barrier indicator there)
+    small = table1_workload(seed=7, n_steps=16,
+                            categories=[("BS-A", 2), ("H-A", 2), ("H-E", 2)])
+    on_card = price_batch(small, 4096, seed=5)
+    on_cpu = price_batch(small, 4096, seed=5, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        check(math.isclose(float(a.price), float(b.price), rel_tol=RTOL),
+              f"card {a} vs cpu {b}")
+    log(f"card vs cpu on {len(small)} small tasks: prices within rtol {RTOL}")
+    log(f"phase 2 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 3: the main path --------------------------------------------
+    t0 = time.perf_counter()
+    cluster = build_cluster()
+    check(len(cluster) == 17, "cluster is not 16 simulated + 1 local platform")
+    local = cluster[-1]
+    log(f"local platform: {local.spec.name} / {local.spec.device}")
+    solver = PricingSolver(tasks, cluster)
+    mc_paths.reset_launch_count()
+    solver.characterise()
+    launches_char = mc_paths.launch_count()
+    log(f"characterise: {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{launches_char}")
+    check(launches_char > 0, "characterise launched no kernel")
+    check(bool(np.isfinite(solver._delta).all() and np.isfinite(solver._gamma).all()),
+          "non-finite fitted models")
+    local_rows = solver._delta[-1]
+    log(f"fitted delta on {local.spec.name}: min {local_rows.min():.3e} "
+        f"max {local_rows.max():.3e} s*$^2")
+    for key, group in group_by_launch(tasks):
+        # ladder records carry the launch latency split evenly over the
+        # group's tasks (uniform path counts): scale back to the launch
+        recs = solver.scheduler.characterise_records[(local.spec.name, group[0][1].task_id)]
+        log(f"local ladder {key}: (paths per task, launch s): "
+            f"{[(r.n_paths, round(r.latency * len(group), 6)) for r in recs]}")
+    for j in np.flatnonzero(local_rows == 0.0):
+        # a rung whose paths all paid the same gives a CI of exactly 0, and
+        # the relative-error weighted accuracy fit then drives alpha to 0
+        recs = solver.scheduler.characterise_records[(local.spec.name, tasks[j].task_id)]
+        log(f"  delta 0: task {tasks[j].task_id} ({tasks[j].category}), rungs "
+            f"(paths, CI): {[(r.n_paths, round(r.ci95, 6)) for r in recs]}")
+    calib = cluster[0].moments
+    task_by_id = {t.task_id: t for t in tasks}
+    mc_paths.reset_launch_count()
+    reports = {}
+    for method, kw in (("milp", dict(time_limit=60)), ("heuristic", {})):
+        t1 = time.perf_counter()
+        alloc = solver.allocate(ACCURACY, method=method, **kw)
+        solve_s = time.perf_counter() - t1
+        check(bool(np.allclose(alloc.A.sum(axis=0), 1.0)), f"{method}: shares do not sum to 1")
+        rep = solver.execute(alloc, ACCURACY)
+        reports[method] = rep
+        worst = max(rep.measured_ci.values())
+        local_share = float(alloc.A[-1].sum() / alloc.A.shape[1])
+        log(f"{method}: solve {solve_s:.2f} s; predicted makespan "
+            f"{rep.predicted_makespan:.6f} s; measured {rep.measured_makespan:.6f} s "
+            f"(error {rep.makespan_error:.2%}); local share {local_share:.3f}; "
+            f"local latency {rep.platform_latencies[local.spec.name]:.6f} s; "
+            f"worst CI {worst:.5f} vs {ACCURACY}")
+        # the local platform's launches pad each ragged bucket of shards to
+        # its largest path count (whole blocks): the work the card really did
+        requested = padded = 0
+        for plat, launch_groups in solver.scheduler.shards(alloc, solver.problem(ACCURACY)):
+            if plat is not local:
+                continue
+            for group in launch_groups:
+                ns = [units for _, units in group]
+                for bucket in mc._ragged_buckets(ns):
+                    n_pad = -(-max(ns[k] for k in bucket) // BLOCK_PATHS) * BLOCK_PATHS
+                    requested += sum(ns[k] for k in bucket)
+                    padded += n_pad * len(bucket)
+        log(f"{method}: local paths requested {requested}, simulated with "
+            f"padding {padded} ({padded / max(requested, 1):.3f}x)")
+        by_group: dict = {}
+        for r in rep.records:
+            if r.platform == local.spec.name:
+                key = launch_key(task_by_id[r.task_id])
+                model = solver.models[(local.spec.name, r.task_id)].latency
+                got = by_group.setdefault(key, [0.0, 0.0, 0])
+                got[0] += r.latency
+                got[1] += float(model(r.n_paths))
+                got[2] += 1
+        for key, (measured, modelled, n_tasks) in by_group.items():
+            log(f"{method}: local {key}: {n_tasks} tasks, measured {measured:.6f} s, "
+                f"latency model {modelled:.6f} s")
+        check(math.isfinite(rep.predicted_makespan) and rep.predicted_makespan > 0,
+              f"{method}: bad predicted makespan")
+        check(math.isfinite(rep.measured_makespan) and rep.measured_makespan > 0,
+              f"{method}: bad measured makespan")
+        check(len(rep.prices) == 128 and all(math.isfinite(p) for p in rep.prices.values()),
+              f"{method}: missing or non-finite prices")
+        # the accuracy model is a fit: the achieved CI should land near the
+        # target, well inside 20% of it
+        check(worst <= ACCURACY * 1.2, f"{method}: worst CI {worst} misses {ACCURACY}")
+        for t in tasks:
+            p_cal, alpha = calib(t)
+            se = math.hypot(rep.measured_ci[t.task_id],
+                            alpha / math.sqrt(calib.calib_paths)) / (2 * 1.96)
+            check(abs(rep.prices[t.task_id] - p_cal) <= 5 * se + 1e-6,
+                  f"{method}: task {t.task_id} price {rep.prices[t.task_id]} vs "
+                  f"calibration {p_cal} beyond 5 standard errors")
+    launches_exec = mc_paths.launch_count()
+    log(f"execute (both methods): kernel launches {launches_exec}")
+    check(launches_exec > 0, "execute launched no kernel")
+    log(f"improvement of milp over heuristic (measured makespan): "
+        f"{reports['heuristic'].measured_makespan / reports['milp'].measured_makespan:.3f}x")
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 4: timing -----------------------------------------------------
+    per_group = []
+    for key, batch in groups:
+        n_act = torch.full((batch.n_tasks,), CALIB_PATHS, dtype=torch.uint32, device=dev)
+
+        def kernel():
+            mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, CALIB_PATHS, BLOCK_PATHS)
+
+        def plain():
+            mc_paths.mc_moments_batch_ref(batch, n_act, CALIB_SEED, CALIB_PATHS, BLOCK_PATHS)
+
+        k_ms = cuda_ms(kernel, reps=20, warmup=2)
+        p_ms = cuda_ms(plain, reps=2, warmup=1)
+        b_ms, b_by, ops = bound_ms(batch.model_kind, batch.n_tasks, CALIB_PATHS, batch.n_steps)
+        per_group.append(dict(group=f"{key[0]}/{key[1]}", tasks=batch.n_tasks,
+                              paths=CALIB_PATHS, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by, ops=ops))
+        log(f"timing {key}: T={batch.n_tasks} paths={CALIB_PATHS}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, {ops:.4e} ops), "
+            f"bound share {b_ms / k_ms:.3f}")
+    log(f"card: {card}")
+    kernels = [{
+        "name": "mc_moments_batch",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mc_paths.cu",
+        "replaces": "src/repro/kernels/mc_paths.py:172",
+        "launches": launches_char + launches_exec,
+        "max_abs_err": max_abs,
+        "max_rel_err": max_rel,
+        # one Table 1 calibration: the BS and the Heston launch
+        "ms": sum(g["ms"] for g in per_group),
+        "plain_ms": sum(g["plain_ms"] for g in per_group),
+        "bound_ms": sum(g["bound_ms"] for g in per_group),
+        "bound_by": "operations" if all(g["bound_by"] == "operations" for g in per_group) else "bytes",
+        "library_ms": None,
+        "per_group": per_group,
+    }]
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        sys.exit(1)

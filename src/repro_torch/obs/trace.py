@@ -1,0 +1,494 @@
+"""Span tracing with dual clocks, exported as Chrome trace-event JSON.
+
+The runtime's phases — characterise, solve (with the per-phase
+``build_s``/``solve_s``/``polish_s`` meta lifted into real spans), dispatch
+per platform, online rounds, probes, re-fits — become *spans*: named
+intervals on named tracks. Two clocks ride on every dispatch span:
+
+* the **wall clock** (``time.perf_counter`` relative to the tracer epoch)
+  is what the span's ``ts``/``dur`` encode — true host concurrency, so a
+  Perfetto timeline shows per-platform work genuinely overlapping;
+* the **virtual clock** (the platform's replayed-latency cumulative time,
+  the mode-parity-safe quantity everything else in the runtime keys on)
+  rides in the span ``args`` (``virt0``/``virt1``) when the caller
+  supplies it via :meth:`Span.set_virtual`.
+
+Spans are thread-safe and *propagate through Executor jobs*: each thread
+keeps its own open-span stack (``threading.local``), so a dispatch span
+opened inside a pool thread nests its launch-group children correctly
+while sibling platforms overlap on their own tracks. Export is the Chrome
+trace-event JSON array format (``B``/``E`` duration events plus ``i``
+instants and ``M`` thread-name metadata, one ``tid`` per track), which
+loads directly in Perfetto / ``chrome://tracing``.
+
+Everything is off by default and zero-dependency: a disabled tracer's
+:meth:`Tracer.span` returns a shared no-op context manager (no allocation,
+no lock), so instrumented code paths cost nothing measurable when tracing
+is off. ``REPRO_TRACE=1`` enables the process-default tracer and registers
+an atexit hook that writes ``REPRO_TRACE_PATH`` (default
+``repro_trace.json``); ``Scheduler(trace=...)`` scopes a tracer to one
+scheduler instead.
+"""
+from __future__ import annotations
+
+import atexit
+import json
+import os
+import threading
+import time
+from math import inf, isfinite
+
+__all__ = [
+    "Span", "Tracer", "default_tracer", "set_default_tracer",
+    "resolve_tracer", "env_enabled", "lift_solver_phases",
+    "validate_chrome_trace", "render_span_tree",
+]
+
+#: solver meta keys lifted into per-phase spans (solver telemetry).
+PHASE_KEYS = ("build_s", "solve_s", "polish_s")
+
+
+def env_enabled() -> bool:
+    """True when the ``REPRO_TRACE`` environment variable opts in."""
+    return os.environ.get("REPRO_TRACE", "").strip().lower() not in (
+        "", "0", "false", "off", "no")
+
+
+class Span:
+    """One interval on a track; also its own context manager.
+
+    ``args`` is a plain mutable dict the instrumented code may annotate
+    while the span is open (record counts, fault counts, ...); wall-time
+    values must stay out of it — the concurrent==sequential span parity
+    contract compares args bitwise across executor modes.
+    """
+
+    __slots__ = ("name", "track", "cat", "t0", "t1", "args",
+                 "_tracer", "_seq0", "_seq1")
+
+    def __init__(self, tracer: "Tracer", name: str, track: str, cat: str,
+                 args: dict):
+        self._tracer = tracer
+        self.name = name
+        self.track = track
+        self.cat = cat
+        self.args = args
+        self.t0 = self.t1 = 0.0
+        self._seq0 = self._seq1 = 0
+
+    def set_virtual(self, v0, v1) -> None:
+        """Attach the platform virtual-clock endpoints to the span."""
+        if v0 is not None:
+            self.args["virt0"] = float(v0)
+        if v1 is not None:
+            self.args["virt1"] = float(v1)
+
+    def __enter__(self) -> "Span":
+        self.t0, self._seq0 = self._tracer._open(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._tracer._close(self)
+        return False
+
+
+class _NullSpan:
+    """Shared no-op span handed out by disabled tracers.
+
+    ``args`` is one shared dict (instrumentation keys are a small fixed
+    vocabulary, so it stays bounded); nothing written here is ever read.
+    """
+
+    __slots__ = ()
+    args: dict = {}
+
+    def set_virtual(self, v0, v1) -> None:
+        pass
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+    """Thread-safe span collector with Chrome trace-event export."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = bool(enabled)
+        self._epoch = time.perf_counter()
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._seq = 0
+        #: finished spans, in close order.
+        self.spans: list[Span] = []
+        #: (name, track, cat, ts, seq, args) instant events.
+        self.instants: list[tuple] = []
+
+    # -- clock -------------------------------------------------------------
+
+    def now(self) -> float:
+        """Seconds since the tracer epoch (host wall clock)."""
+        return time.perf_counter() - self._epoch
+
+    def _next_seq(self) -> int:
+        with self._lock:
+            self._seq += 1
+            return self._seq
+
+    # -- recording ---------------------------------------------------------
+
+    def span(self, name: str, track: str = "main", cat: str = "runtime",
+             **args):
+        """Open a span as a context manager; no-op when disabled."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return Span(self, name, track, cat, dict(args))
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _open(self, span: Span) -> tuple[float, int]:
+        self._stack().append(span)
+        return self.now(), self._next_seq()
+
+    def _close(self, span: Span) -> None:
+        st = self._stack()
+        if st and st[-1] is span:
+            st.pop()
+        span.t1 = max(self.now(), span.t0)
+        span._seq1 = self._next_seq()
+        with self._lock:
+            self.spans.append(span)
+
+    def current(self) -> Span | _NullSpan:
+        """The innermost span open on *this* thread (the null span when
+        none is, so callers may annotate unconditionally)."""
+        st = getattr(self._local, "stack", None)
+        return st[-1] if st else _NULL_SPAN
+
+    def add_span(self, name: str, track: str, t0: float, t1: float,
+                 cat: str = "runtime", args: dict | None = None) -> None:
+        """Record a span with explicit endpoints (seconds since epoch) —
+        how retrospective intervals (solver phase meta, whole rounds) are
+        lifted into the trace after the fact."""
+        if not self.enabled:
+            return
+        span = Span(self, name, track, cat, dict(args or {}))
+        span.t0 = float(t0)
+        span.t1 = max(float(t1), span.t0)
+        span._seq0 = self._next_seq()
+        span._seq1 = self._next_seq()
+        with self._lock:
+            self.spans.append(span)
+
+    def instant(self, name: str, track: str = "main", cat: str = "event",
+                **args) -> None:
+        """Record a point event (fault, shed, breaker/brownout move)."""
+        if not self.enabled:
+            return
+        ts, seq = self.now(), self._next_seq()
+        with self._lock:
+            self.instants.append((name, track, cat, ts, seq, dict(args)))
+
+    # -- export ------------------------------------------------------------
+
+    def chrome_events(self) -> list[dict]:
+        """Chrome trace-event dicts: thread-name metadata first, then the
+        B/E/i stream with globally monotone ``ts`` and balanced, properly
+        nested B/E per tid.
+
+        Ordering comes from span *geometry*, not emission order: spans are
+        lifted into the trace retroactively (solver phases, whole rounds)
+        so a parent can be recorded after its children. Each track is
+        swept with an interval stack — spans sorted by
+        ``(t0, -t1, seq)`` so enclosing spans open first, closes emitted
+        lazily when the next span starts past them — which yields a valid
+        nesting even at exactly-equal boundary timestamps."""
+        with self._lock:
+            spans = list(self.spans)
+            instants = list(self.instants)
+        tids: dict[str, int] = {}
+
+        def tid(track: str) -> int:
+            if track not in tids:
+                tids[track] = len(tids) + 1
+            return tids[track]
+
+        by_track: dict[str, list[Span]] = {}
+        for s in spans:
+            tid(s.track)
+            by_track.setdefault(s.track, []).append(s)
+        for name, track, cat, ts, seq, args in instants:
+            tid(track)
+
+        raw: list[tuple[float, int, dict]] = []
+        order = 0  # per-emission tiebreak; per-tid order is preserved
+        for track, group in by_track.items():
+            t = tids[track]
+            group.sort(key=lambda s: (s.t0, -s.t1, s._seq0))
+            stack: list[Span] = []
+            cursor = 0.0  # monotone floor: a clamped E never rewinds ts
+
+            def emit(ph: str, s: Span, ts: float) -> float:
+                nonlocal order, cursor
+                cursor = max(ts, cursor)
+                ev = {"name": s.name, "cat": s.cat, "ph": ph,
+                      "pid": 1, "tid": t}
+                if ph == "E":
+                    ev["args"] = dict(s.args)
+                order += 1
+                raw.append((cursor, order, ev))
+                return cursor
+
+            for s in group:
+                while stack and stack[-1].t1 <= s.t0:
+                    top = stack.pop()
+                    emit("E", top, top.t1)
+                emit("B", s, s.t0)
+                stack.append(s)
+            while stack:
+                top = stack.pop()
+                emit("E", top, top.t1)
+        for name, track, cat, ts, seq, args in instants:
+            order += 1
+            raw.append((ts, order, {"name": name, "cat": cat, "ph": "i",
+                                    "s": "t", "pid": 1, "tid": tids[track],
+                                    "args": dict(args)}))
+        raw.sort(key=lambda ev: (ev[0], ev[1]))
+        out = [{"ph": "M", "name": "process_name", "pid": 1, "tid": 0,
+                "args": {"name": "repro"}}]
+        for track, t in sorted(tids.items(), key=lambda kv: kv[1]):
+            out.append({"ph": "M", "name": "thread_name", "pid": 1,
+                        "tid": t, "args": {"name": track}})
+        for ts, _seq, ev in raw:
+            ev["ts"] = round(ts * 1e6, 3)  # microseconds, Perfetto's unit
+            out.append(ev)
+        return out
+
+    def chrome_trace(self) -> dict:
+        return {"traceEvents": self.chrome_events(),
+                "displayTimeUnit": "ms"}
+
+    def write(self, path: str | os.PathLike) -> str:
+        """Dump the Chrome trace JSON; returns the path written."""
+        with open(path, "w") as fh:
+            json.dump(self.chrome_trace(), fh)
+        return os.fspath(path)
+
+    # -- parity ------------------------------------------------------------
+
+    def parity_keys(self) -> list[tuple]:
+        """The mode-parity view of the trace: every span/instant as
+        (track, name, cat, sorted args) with wall-clock-valued keys
+        (``*_s``) dropped — virtual clocks, counts and rounds stay, and
+        the multiset must be bitwise identical across executor modes."""
+        def canon(args: dict) -> tuple:
+            return tuple(sorted((k, repr(v)) for k, v in args.items()
+                                if not k.endswith("_s")))
+        with self._lock:
+            keys = [(s.track, s.name, s.cat, canon(s.args))
+                    for s in self.spans]
+            keys += [(track, name, cat, canon(args))
+                     for name, track, cat, _ts, _seq, args in self.instants]
+        return sorted(keys)
+
+
+# --------------------------------------------------------------------------
+# Process-default tracer (the REPRO_TRACE=1 path)
+# --------------------------------------------------------------------------
+
+_DEFAULT: Tracer | None = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def _write_default() -> None:  # pragma: no cover - exercised via examples
+    t = _DEFAULT
+    if t is None or not t.enabled or not (t.spans or t.instants):
+        return
+    path = os.environ.get("REPRO_TRACE_PATH", "repro_trace.json")
+    t.write(path)
+    from .log import get_logger
+    get_logger("obs.trace").info(
+        "trace: %d spans on %d tracks written to %s (load in Perfetto / "
+        "chrome://tracing)", len(t.spans),
+        len({s.track for s in t.spans}), path)
+
+
+def default_tracer() -> Tracer:
+    """The process tracer: enabled iff ``REPRO_TRACE`` opts in, created
+    (and its atexit writer registered) on first use."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        with _DEFAULT_LOCK:
+            if _DEFAULT is None:
+                t = Tracer(enabled=env_enabled())
+                if t.enabled:
+                    atexit.register(_write_default)
+                _DEFAULT = t
+    return _DEFAULT
+
+
+def set_default_tracer(tracer: Tracer | None) -> None:
+    """Replace the process tracer (tests; embedding)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        _DEFAULT = tracer
+
+
+def resolve_tracer(trace) -> Tracer:
+    """The ``Scheduler(trace=...)`` contract: a :class:`Tracer` is used
+    as-is, ``True``/``False`` force a fresh enabled/disabled tracer, and
+    ``None`` defers to the process default (``REPRO_TRACE``)."""
+    if isinstance(trace, Tracer):
+        return trace
+    if trace is None:
+        return default_tracer()
+    return Tracer(enabled=bool(trace))
+
+
+# --------------------------------------------------------------------------
+# Lifting solver phase meta into spans
+# --------------------------------------------------------------------------
+
+def lift_solver_phases(tracer: Tracer, meta: dict, t1: float, *,
+                       label: str = "solve", track: str = "solver",
+                       depth: int = 0) -> None:
+    """Turn an :class:`~repro_torch.core.Allocation`'s per-phase meta timings
+    (``build_s``/``solve_s``/``polish_s``) into spans ending at
+    ``t1``. Nested inner-solver meta (``meta["inner"]`` from clustered /
+    incremental solves) recurses one track level down, laid inside the
+    parent window.
+    """
+    if not tracer.enabled or not isinstance(meta, dict):
+        return
+    phases = [(k[:-2], float(meta.get(k) or 0.0)) for k in PHASE_KEYS]
+    total = sum(d for _n, d in phases)
+    extra = sum(float(meta.get(k) or 0.0)
+                for k in ("cluster_s", "patch_s"))
+    t0 = t1 - total - extra
+    counts = {k: meta[k] for k in ("n_vars", "n_constraints", "n_clusters",
+                                   "warm_start", "incremental", "status")
+              if k in meta}
+    tracer.add_span(label, track, t0, t1, cat="solver", args=counts)
+    cur = t0 + extra  # clustering/patch bookkeeping precedes the phases
+    for name, dur in phases:
+        if dur > 0.0:
+            tracer.add_span(name, track, cur, cur + dur, cat="solver")
+            cur += dur
+    inner = meta.get("inner")
+    if depth < 2 and inner:
+        inners = inner if isinstance(inner, list) else [inner]
+        for i, m in enumerate(inners):
+            if isinstance(m, dict):
+                itot = (sum(float(m.get(k) or 0.0) for k in PHASE_KEYS)
+                        or (t1 - t0) / max(len(inners), 1))
+                lift_solver_phases(
+                    tracer, m, min(t0 + extra + (i + 1) * itot, t1),
+                    label=f"{label}.inner[{i}]", track=f"{track}.inner",
+                    depth=depth + 1)
+
+
+# --------------------------------------------------------------------------
+# Validation + text rendering (shared by tests, CI and trace_report)
+# --------------------------------------------------------------------------
+
+def validate_chrome_trace(events: list[dict]) -> dict:
+    """Validate a Chrome trace-event list: required keys on every event,
+    globally monotone ``ts``, and balanced, properly-nested B/E per tid.
+    Raises :class:`ValueError` on the first violation; returns summary
+    counts on success."""
+    if not isinstance(events, list) or not events:
+        raise ValueError("trace must be a non-empty event list")
+    stacks: dict[int, list[str]] = {}
+    last_ts = -inf
+    n_spans = n_instants = 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object: {ev!r}")
+        ph = ev.get("ph")
+        if ph not in ("B", "E", "i", "M"):
+            raise ValueError(f"event {i} has unknown ph {ph!r}")
+        if not isinstance(ev.get("name"), str) or not ev["name"]:
+            raise ValueError(f"event {i} has no name")
+        if ph == "M":
+            continue
+        for key in ("ts", "pid", "tid"):
+            if not isinstance(ev.get(key), (int, float)):
+                raise ValueError(f"event {i} ({ev['name']!r}) missing {key}")
+        ts = float(ev["ts"])
+        if not isfinite(ts) or ts < 0.0:
+            raise ValueError(f"event {i} has bad ts {ts!r}")
+        if ts < last_ts:
+            raise ValueError(
+                f"event {i} ({ev['name']!r}) ts {ts} < previous {last_ts}: "
+                f"ts not monotone")
+        last_ts = ts
+        stack = stacks.setdefault(int(ev["tid"]), [])
+        if ph == "B":
+            stack.append(ev["name"])
+            n_spans += 1
+        elif ph == "E":
+            if not stack:
+                raise ValueError(
+                    f"event {i}: E {ev['name']!r} with no open B on "
+                    f"tid {ev['tid']}")
+            top = stack.pop()
+            if top != ev["name"]:
+                raise ValueError(
+                    f"event {i}: E {ev['name']!r} closes open span "
+                    f"{top!r} on tid {ev['tid']} (bad nesting)")
+        else:
+            n_instants += 1
+    open_left = {tid: st for tid, st in stacks.items() if st}
+    if open_left:
+        raise ValueError(f"unbalanced B/E: still open {open_left}")
+    return {"events": len(events), "spans": n_spans,
+            "instants": n_instants, "tracks": len(stacks)}
+
+
+def render_span_tree(events: list[dict]) -> str:
+    """Render a validated event list as an indented per-track span tree
+    with wall durations — the ``examples/trace_report.py`` view."""
+    names: dict[int, str] = {}
+    by_tid: dict[int, list[dict]] = {}
+    for ev in events:
+        if ev.get("ph") == "M" and ev.get("name") == "thread_name":
+            names[int(ev["tid"])] = ev["args"]["name"]
+        elif ev.get("ph") in ("B", "E", "i"):
+            by_tid.setdefault(int(ev["tid"]), []).append(ev)
+    lines: list[str] = []
+    for tid in sorted(by_tid):
+        lines.append(f"{names.get(tid, f'track {tid}')}")
+        stack: list[tuple[str, float]] = []
+        for ev in by_tid[tid]:
+            indent = "  " * (len(stack) + 1)
+            if ev["ph"] == "B":
+                stack.append((ev["name"], float(ev["ts"])))
+            elif ev["ph"] == "E":
+                name, ts0 = stack.pop()
+                indent = "  " * (len(stack) + 1)
+                dur_ms = (float(ev["ts"]) - ts0) / 1e3
+                args = ev.get("args") or {}
+                note = ", ".join(f"{k}={_fmt(v)}" for k, v in args.items())
+                lines.append(f"{indent}{name:<24s} {dur_ms:9.3f} ms"
+                             + (f"  ({note})" if note else ""))
+            else:
+                args = ev.get("args") or {}
+                note = ", ".join(f"{k}={_fmt(v)}" for k, v in args.items())
+                lines.append(f"{indent}* {ev['name']}"
+                             + (f"  ({note})" if note else ""))
+    return "\n".join(lines)
+
+
+def _fmt(v) -> str:
+    if isinstance(v, float):
+        return f"{v:.6g}"
+    return str(v)

@@ -1,0 +1,455 @@
+"""Heterogeneous platforms (paper §5.1.2, Table 2) and online benchmarking.
+
+Two platform kinds:
+
+``LocalTorchPlatform``
+    Real execution: the Monte Carlo kernel on this host's CUDA card (or its
+    plain PyTorch version on the CPU when asked), latency measured by wall
+    clock between device synchronisations. This is the analogue of the
+    paper's "Desktop/Localhost" row and grounds the whole study in measured
+    data.
+
+``SimulatedPlatform``
+    Replays a Table 2 row. We obviously cannot SSH into the paper's 2015
+    cluster, so remote platforms are simulated from their two published
+    characteristics — application performance (GFLOPS, Kaiserslautern
+    benchmark) and network RTT — exactly the quantities the paper says
+    determine beta and gamma respectively (§5.1.2):
+
+        latency(n) = task_flops(n) / GFLOPS + RTT + lognormal jitter
+
+    The *statistics* (price, CI) of a simulated run come from the task's
+    true payoff moments (platform-independent, estimated once per task by
+    the local engine) plus seeded estimator noise — a remote platform
+    changes where the paths are computed, not their distribution.
+
+The online benchmarking procedure (§3.1.4) runs a geometric ladder of path
+counts on each platform and fits the (beta, gamma, alpha) coefficients by
+weighted least squares, yielding the CombinedModel (delta, gamma) entries
+that the allocation matrices are built from.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+import zlib
+from typing import Protocol, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.metrics import (
+    AccuracyModel,
+    CombinedModel,
+    LatencyModel,
+    fit_accuracy_model,
+    fit_latency_model,
+)
+from repro_torch.runtime.domain import PlatformSpec
+from repro_torch.runtime.scenario import Scenario, apply_scenario, salvage_runs
+from .contracts import Heston, PricingTask, group_by_launch, resolve_device
+from . import mc
+
+__all__ = [
+    "PlatformSpec", "TABLE2_SPECS", "RunRecord", "Platform",
+    "LocalTorchPlatform", "SimulatedPlatform", "TaskPlatformModel",
+    "benchmark", "benchmark_adaptive", "benchmark_batch",
+    "benchmark_adaptive_batch", "characterise", "kflop_per_path",
+    "build_cluster",
+]
+
+
+#: Paper Table 2, verbatim.
+TABLE2_SPECS: list[PlatformSpec] = [
+    PlatformSpec("Desktop",        "CPU",  "Intel Core i7-2600",    "ICL London",      5.916,   0.024),
+    PlatformSpec("Local Server",   "CPU",  "AMD Opteron 6272",      "ICL London",     27.002,   0.380),
+    PlatformSpec("Local Pi",       "CPU",  "ARM 11 76JZF-S",        "ICL London",      0.049,   2.463),
+    PlatformSpec("Remote Server",  "CPU",  "Intel Xeon E5-2680",    "UCT Cape Town",  11.523, 3300.000),
+    PlatformSpec("AWS Server EC1", "CPU",  "Intel Xeon E5-2680",    "AWS US-East",    12.269,  88.859),
+    PlatformSpec("AWS Server EC2", "CPU",  "Intel Xeon E5-2670",    "AWS US-East",     4.913,  88.216),
+    PlatformSpec("AWS Server WC1", "CPU",  "Intel Xeon E5-2680",    "AWS US-West",    12.200, 157.100),
+    PlatformSpec("AWS Server WC2", "CPU",  "Intel Xeon E5-2670",    "AWS US-West",     4.926, 159.578),
+    PlatformSpec("GCE Server",     "CPU",  "Intel Xeon",            "GCE US-Central",  6.022, 111.232),
+    PlatformSpec("Local GPU 1",    "GPU",  "AMD FirePro W5000",     "ICL London",    212.798,   0.269),
+    PlatformSpec("Local GPU 2",    "GPU",  "Nvidia Quadro K4000",   "ICL London",    250.027,   0.278),
+    PlatformSpec("Remote Phi",     "GPU",  "Intel Xeon Phi 3120P",  "UCT Cape Town",  70.850, 3300.000),
+    PlatformSpec("AWS GPU EC",     "GPU",  "Nvidia Grid GK104",     "AWS US-East",   441.274,  88.216),
+    PlatformSpec("AWS GPU WC",     "GPU",  "Nvidia Grid GK104",     "AWS US-West",   406.230, 159.578),
+    PlatformSpec("Local FPGA 1",   "FPGA", "Xilinx Virtex 6 475T",  "ICL London",    114.590,   0.217),
+    PlatformSpec("Local FPGA 2",   "FPGA", "Altera Stratix V D5",   "ICL London",    161.074,   0.299),
+]
+
+#: Paper Table 1 computational work (kFLOP per path) by task category.
+TABLE1_KFLOP: dict[str, float] = {
+    "BS-A": 139.267, "BS-B": 139.266, "BS-DB": 143.360, "BS-DDB": 143.361,
+    "H-A": 319.492, "H-B": 319.491, "H-DB": 323.585, "H-DDB": 323.586,
+    "H-E": 315.395,
+}
+
+
+def kflop_per_path(task: PricingTask) -> float:
+    """FLOP model for a task, anchored to Table 1 (256-step baseline)."""
+    base = TABLE1_KFLOP.get(task.category)
+    if base is None:  # uncatalogued task: estimate from the step kind
+        base = 319.5 if isinstance(task.underlying, Heston) else 139.3
+    return base * (task.n_steps / 256.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunRecord:
+    platform: str
+    task_id: int
+    n_paths: int
+    price: float
+    ci95: float
+    latency: float  # seconds
+
+
+class Platform(Protocol):
+    spec: PlatformSpec
+
+    def run(self, task: PricingTask, n_paths: int, seed: int = 0) -> RunRecord: ...
+
+
+def _as_path_list(tasks: Sequence[PricingTask], n_paths) -> list[int]:
+    return [int(n) for n in
+            np.broadcast_to(np.asarray(n_paths, dtype=np.int64), (len(tasks),))]
+
+
+def dispatch_batch(platform: Platform, tasks: Sequence[PricingTask],
+                   n_paths, seed: int = 0) -> list[RunRecord]:
+    """Run a (task, n_paths) shard list on a platform, batched if it can.
+
+    Platforms exposing ``run_batch`` (the family-batched fast path) get one
+    launch for the whole list; anything else degrades to the per-task loop.
+    """
+    fn = getattr(platform, "run_batch", None)
+    ns = _as_path_list(tasks, n_paths)
+    if fn is not None:
+        return fn(tasks, ns, seed=seed)
+    return [platform.run(t, n, seed=seed) for t, n in zip(tasks, ns)]
+
+
+class LocalTorchPlatform:
+    """Real platform: prices with the Monte Carlo kernel, wall-clock latency.
+
+    Each batch is run once outside the timed region first — it loads the
+    kernel library and warms the allocator — so gamma measures launch and
+    host sync, not the one-off build (the paper's gamma likewise excludes
+    F3's code generation, which happens once). The timed run is bracketed
+    by ``torch.cuda.synchronize()`` so the host clock covers the device's
+    work, not its enqueueing."""
+
+    def __init__(self, name: str = "Local Torch", rtt_ms: float = 0.05,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            kind, processor = "GPU", torch.cuda.get_device_name(self.device)
+        else:
+            kind, processor = "CPU", "torch-cpu"
+        self.spec = PlatformSpec(name, kind, processor, "localhost",
+                                 gflops=float("nan"), rtt_ms=rtt_ms)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run_batch(self, tasks: Sequence[PricingTask], n_paths,
+                  seed: int = 0) -> list[RunRecord]:
+        """One batched launch per launch group; latency split by path share.
+
+        The batch wall clock is attributed to tasks proportionally to their
+        path counts, so per-platform latency totals (and hence measured
+        makespans) are preserved while per-task betas reflect the *batched*
+        throughput — the number production allocation actually sees.
+        """
+        ns = _as_path_list(tasks, n_paths)
+        mc.price_batch(tasks, ns, seed=seed, device=self.device)  # warm-up
+        self._sync()
+        t0 = time.perf_counter()
+        results = mc.price_batch(tasks, ns, seed=seed, device=self.device)
+        self._sync()
+        latency = time.perf_counter() - t0
+        total = max(sum(ns), 1)
+        return [RunRecord(self.spec.name, t.task_id, n,
+                          float(r.price), float(r.ci95), latency * n / total)
+                for t, n, r in zip(tasks, ns, results)]
+
+    def run(self, task: PricingTask, n_paths: int, seed: int = 0) -> RunRecord:
+        return self.run_batch([task], [n_paths], seed=seed)[0]
+
+
+class _TaskMoments:
+    """Per-task true payoff moments, estimated once by the local engine.
+
+    The cache is shared by every simulated platform and primed from
+    concurrent per-platform characterisation threads; the lock keeps the
+    calibration batched (first caller prices the whole family, the rest
+    hit the cache) instead of racing to duplicate launches. The calibration
+    runs on ``device``: the kernel on the card unless the CPU is asked for.
+    """
+
+    def __init__(self, calib_paths: int = 65536,
+                 device: str | torch.device = "cuda"):
+        self.calib_paths = calib_paths
+        self.device = torch.device(device)
+        self._cache: dict[int, tuple[float, float]] = {}
+        self._lock = threading.Lock()
+
+    def prime(self, tasks: Sequence[PricingTask]) -> None:
+        """Calibrate all uncached tasks in family-batched launches."""
+        with self._lock:
+            todo = [t for t in tasks if t.task_id not in self._cache]
+            if not todo:
+                return
+            for t, res in zip(todo, mc.price_batch(todo, self.calib_paths,
+                                                   seed=10_007,
+                                                   device=self.device)):
+                # alpha = ci * sqrt(n): the eq. 8 coefficient
+                alpha = float(res.ci95) * math.sqrt(self.calib_paths)
+                self._cache[t.task_id] = (float(res.price), alpha)
+
+    def __call__(self, task: PricingTask) -> tuple[float, float]:
+        if task.task_id not in self._cache:
+            self.prime([task])
+        return self._cache[task.task_id]
+
+
+_SHARED_MOMENTS: dict[torch.device, _TaskMoments] = {}
+_SHARED_LOCK = threading.Lock()
+
+
+def _shared_moments(device: str | torch.device) -> _TaskMoments:
+    """The process-wide moments cache of one device."""
+    device = torch.device(device)
+    with _SHARED_LOCK:
+        if device not in _SHARED_MOMENTS:
+            _SHARED_MOMENTS[device] = _TaskMoments(device=device)
+        return _SHARED_MOMENTS[device]
+
+
+class SimulatedPlatform:
+    """Replays a Table 2 row; see module docstring for the model.
+
+    ``realtime`` makes the platform *occupy* host wall clock for a scaled
+    fraction of each replayed latency (``sleep(latency * realtime)``), so
+    overlap benchmarks can observe true concurrent makespans without real
+    remote hardware; the returned records are identical either way.
+
+    ``scenario`` attaches a :class:`repro_torch.runtime.scenario.Scenario`: each
+    run consults it at the platform's virtual clock (cumulative replayed
+    latency) for slowdown factors and outage windows, so mid-workload drift
+    is reproducible without hardware. With no scenario the clock is not
+    tracked and behaviour is bit-for-bit the pre-scenario one.
+
+    Without ``moments`` the platform shares the process-wide cache of
+    ``device``, whose calibration runs there.
+    """
+
+    def __init__(self, spec: PlatformSpec, jitter: float = 0.02,
+                 moments: _TaskMoments | None = None, seed: int = 0,
+                 realtime: float = 0.0, scenario: Scenario | None = None,
+                 device: str | torch.device = "cuda"):
+        self.spec = spec
+        self.jitter = jitter
+        self.moments = moments or _shared_moments(device)
+        self._seed = seed
+        self.realtime = realtime
+        self.scenario = scenario
+        self.clock = 0.0
+
+    def attach_scenario(self, scenario: Scenario | None) -> None:
+        """Attach (or clear) a scenario and rewind the virtual clock —
+        fresh clocks let one scenario drive an A/B pair of runs."""
+        self.scenario = scenario
+        self.clock = 0.0
+
+    def run_batch(self, tasks: Sequence[PricingTask], n_paths,
+                  seed: int = 0) -> list[RunRecord]:
+        """Batched replay: one family-batched *calibration* launch, then the
+        (cheap, analytic) per-task latency/accuracy model.
+
+        An outage striking mid-batch re-raises with the completed records
+        attached (the virtual clock already ran them — see
+        :func:`repro_torch.runtime.scenario.salvage_runs`)."""
+        self.moments.prime(tasks)
+        return salvage_runs(lambda tn: self.run(tn[0], tn[1], seed=seed),
+                            list(zip(tasks, _as_path_list(tasks, n_paths))))
+
+    def run(self, task: PricingTask, n_paths: int, seed: int = 0) -> RunRecord:
+        price_true, alpha = self.moments(task)
+        # stable across processes (unlike hash(): PYTHONHASHSEED randomises
+        # str hashing), so seeded runs reproduce exactly
+        key = zlib.crc32(
+            f"{self.spec.name}/{task.task_id}/{n_paths}/{seed}".encode())
+        rng = np.random.default_rng(key + self._seed)
+        flops = kflop_per_path(task) * 1e3 * n_paths
+        compute = flops / (self.spec.gflops * 1e9)
+        latency = (compute + self.spec.rtt_ms * 1e-3) * rng.lognormal(0.0, self.jitter)
+        latency = apply_scenario(self, latency)
+        stderr = alpha / (2 * 1.96) / math.sqrt(n_paths)
+        price = price_true + rng.normal(0.0, stderr)
+        # measured CI wobbles with the sample variance estimate (chi^2_k/k)
+        k = max(n_paths - 1, 1)
+        ci = alpha / math.sqrt(n_paths) * math.sqrt(rng.chisquare(min(k, 10**6)) / min(k, 10**6))
+        if self.realtime:
+            # corrupt-window runs report a negated latency; the real work
+            # still took |latency| of wall clock
+            time.sleep(abs(latency) * self.realtime)
+        return RunRecord(self.spec.name, task.task_id, n_paths, price, ci, latency)
+
+
+def build_cluster(include_local: bool = True,
+                  specs: Sequence[PlatformSpec] | None = None,
+                  device: str | torch.device = "cuda") -> list[Platform]:
+    """The 16-platform evaluation cluster (optionally + the real local one).
+
+    The simulated platforms calibrate on ``device`` and the local platform
+    runs there."""
+    device = resolve_device(device)
+    cluster: list[Platform] = [SimulatedPlatform(s, device=device)
+                               for s in (specs or TABLE2_SPECS)]
+    if include_local:
+        cluster.append(LocalTorchPlatform(device=device))
+    return cluster
+
+
+# --------------------------------------------------------------------------
+# Online benchmarking & characterisation (§3.1.4)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TaskPlatformModel:
+    latency: LatencyModel
+    accuracy: AccuracyModel
+
+    @property
+    def combined(self) -> CombinedModel:
+        return CombinedModel.from_models(self.latency, self.accuracy)
+
+
+def benchmark(platform: Platform, task: PricingTask,
+              path_ladder: Sequence[int], seed: int = 1) -> list[RunRecord]:
+    return [platform.run(task, int(n), seed=seed + i)
+            for i, n in enumerate(path_ladder)]
+
+
+def benchmark_adaptive(platform: Platform, task: PricingTask,
+                       start: int = 1024, min_time: float = 0.25,
+                       max_rungs: int = 10, seed: int = 1) -> list[RunRecord]:
+    """Online benchmarking with a latency floor (paper §5.3 lesson).
+
+    Fixed ladders mis-fit beta on fast platforms behind long RTTs (the
+    paper's Remote Phi/Server failure): every rung is pure gamma and the
+    slope is noise. Keep quadrupling the path count until a run's latency
+    clearly exceeds the constant floor — then the slope is identified."""
+    records = [platform.run(task, start, seed=seed)]
+    n = start
+    for i in range(1, max_rungs):
+        n *= 4
+        records.append(platform.run(task, n, seed=seed + i))
+        if (records[-1].latency > max(min_time, 5.0 * records[0].latency)
+                and len(records) >= 3):
+            break
+    return records
+
+
+def benchmark_batch(platform: Platform, tasks: Sequence[PricingTask],
+                    path_ladder: Sequence[int],
+                    seed: int = 1) -> list[list[RunRecord]]:
+    """Run a fixed path ladder over a task family: one launch per rung.
+
+    Returns one record list per rung (aligned with ``tasks``)."""
+    return [dispatch_batch(platform, tasks, int(n), seed=seed + i)
+            for i, n in enumerate(path_ladder)]
+
+
+def benchmark_adaptive_batch(platform: Platform, tasks: Sequence[PricingTask],
+                             start: int = 1024, min_time: float = 0.25,
+                             max_rungs: int = 10,
+                             seed: int = 1) -> list[list[RunRecord]]:
+    """Family-batched analogue of :func:`benchmark_adaptive`.
+
+    The whole family climbs the ladder together; the stopping rule uses the
+    rung's *total* latency — the batch wall-clock for a local platform
+    (per-task latencies are attributed shares of one launch), the summed
+    sequential time for a simulated one — so a rung stops growing once the
+    launch as a whole clearly dominates the constant floor.  Tasks of a
+    family share computational structure (same kFLOP model within ~3%, see
+    Table 1), which is what makes a joint ladder statistically safe."""
+    rungs = [dispatch_batch(platform, tasks, start, seed=seed)]
+    n = start
+    for i in range(1, max_rungs):
+        n *= 4
+        rungs.append(dispatch_batch(platform, tasks, n, seed=seed + i))
+        total0 = sum(r.latency for r in rungs[0])
+        total_last = sum(r.latency for r in rungs[-1])
+        if total_last > max(min_time, 5.0 * total0) and len(rungs) >= 3:
+            break
+    return rungs
+
+
+def fit_models(records: Sequence[RunRecord]) -> TaskPlatformModel:
+    n = [r.n_paths for r in records]
+    lat = fit_latency_model(n, [r.latency for r in records])
+    acc = fit_accuracy_model(n, [r.ci95 for r in records])
+    return TaskPlatformModel(latency=lat, accuracy=acc)
+
+
+def characterise(
+    platforms: Sequence[Platform],
+    tasks: Sequence[PricingTask],
+    path_ladder: Sequence[int] | None = None,
+    seed: int = 1,
+    batched: bool = True,
+) -> dict[tuple[str, int], TaskPlatformModel]:
+    """Benchmark every (platform, task) pair and fit its metric models.
+
+    Default is the adaptive ladder (latency floor); pass an explicit
+    ``path_ladder`` to reproduce fixed-budget sweeps (Figs 3-6).
+
+    With ``batched=True`` (default) tasks are grouped by compilation unit
+    (model kind, n_steps — payoff is a runtime code) and the whole ladder
+    is issued as batched launches: task parameters and path counts are
+    runtime operands, so each rung takes one launch per underlying model,
+    not one per (platform, task).  Set ``batched=False`` to replay the
+    legacy per-task loop."""
+    out: dict[tuple[str, int], TaskPlatformModel] = {}
+    if not batched:
+        for p in platforms:
+            for t in tasks:
+                recs = (benchmark(p, t, path_ladder, seed) if path_ladder
+                        else benchmark_adaptive(p, t, seed=seed))
+                out[(p.spec.name, t.task_id)] = fit_models(recs)
+        return out
+
+    groups = group_by_launch(tasks)
+    for p in platforms:
+        for _key, group in groups:
+            gtasks = [t for _, t in group]
+            rungs = (benchmark_batch(p, gtasks, path_ladder, seed)
+                     if path_ladder
+                     else benchmark_adaptive_batch(p, gtasks, seed=seed))
+            for k, t in enumerate(gtasks):
+                out[(p.spec.name, t.task_id)] = fit_models(
+                    [rung[k] for rung in rungs])
+    return out
+
+
+def model_matrices(
+    models: dict[tuple[str, int], TaskPlatformModel],
+    platforms: Sequence[Platform],
+    tasks: Sequence[PricingTask],
+) -> tuple[np.ndarray, np.ndarray]:
+    """(delta, gamma) matrices for AllocationProblem, ordered [platform, task]."""
+    mu, tau = len(platforms), len(tasks)
+    delta = np.zeros((mu, tau))
+    gamma = np.zeros((mu, tau))
+    for i, p in enumerate(platforms):
+        for j, t in enumerate(tasks):
+            m = models[(p.spec.name, t.task_id)].combined
+            delta[i, j] = m.delta
+            gamma[i, j] = m.gamma
+    return delta, gamma
