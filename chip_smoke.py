@@ -7,16 +7,22 @@ Phases, each of which exits non-zero on failure:
 
 1. Print the card (``nvidia-smi`` name and power limit, torch's device
    name) and build the kernels from ``src/repro_torch/kernels/csrc``.
-2. Hold the CUDA moments kernel against its plain PyTorch version on the
-   card, at the calibration shape of each Table 1 launch group and on a
-   ragged path-count case; check that two kernel runs are bitwise equal,
-   and that the card agrees with the CPU on a small input.
+2. Hold both CUDA kernels against their plain PyTorch versions on the card:
+   the family-batched moments kernel at the calibration shape of each
+   Table 1 launch group and on a ragged path-count case; the single-task
+   kernel on one task of each of the 10 (model, payoff) categories, at
+   three path-block sizes, and against the batch kernel on the same task.
+   Two runs of a kernel must be bitwise equal; the card must agree with
+   the CPU on a small input.
 3. Drive the main path: ``PricingSolver(table1_workload(), build_cluster())``
    — 128 tasks of 256 steps on the 16 simulated Table 2 platforms plus the
-   local card — through characterise, allocate (MILP and heuristic) and
-   execute, counting kernel launches.
-4. Time the kernel, its plain version and the kernel's bound with CUDA
-   events at the calibration shapes, and print one ``{"kernels": [...]}``
+   local card — through characterise, allocate (MILP, heuristic and the
+   simulated-annealing "ml" solver) and execute, counting kernel launches.
+4. Drive the online loop on the same workload and cluster: a static "ml"
+   plan and ``OnlineScheduler`` with "ml", both under a 4x slowdown of the
+   busiest simulated platform at the plan's half-makespan.
+5. Time both kernels, their plain versions and their bounds with CUDA
+   events at the shapes of phase 2, and print one ``{"kernels": [...]}``
    line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -65,6 +71,15 @@ PEAK_BYTES = 3.35e12
 # and per (task, block) out (sum, sumsq)
 BYTES_IN_PER_TASK = 14 * 4 + 3 * 4
 BYTES_OUT_PER_BLOCK = 2 * 4
+# the single-task kernel: 14 float32 scalars, seed and task id in; no mask
+TASK_BYTES_IN = 14 * 4 + 2 * 4
+TASK_OPS_PER_PATH = OPS_PER_PATH - 1
+# one task of each (model, payoff) category for the single-task kernel
+TASK_CATEGORIES = ["BS-E", "BS-A", "BS-B", "BS-DB", "BS-DDB",
+                   "H-E", "H-A", "H-B", "H-DB", "H-DDB"]
+# the online loop: rounds of the feedback controller, slowdown factor
+ONLINE_ROUNDS = 8
+SLOWDOWN = 4.0
 
 
 class SmokeFailure(RuntimeError):
@@ -106,12 +121,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(model_kind: str, n_tasks: int, n_paths: int, n_steps: int) -> tuple[float, str, float]:
+def partial_errors(got, want) -> tuple[float, float]:
+    """(max abs, max rel) error of kernel partials against the plain
+    version's; an exact match counts as zero relative error."""
+    import torch
+
+    diff = (got - want).abs()
+    rel = diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
+    return float(diff.max()), float(rel.max())
+
+
+def bound_ms(model_kind: str, n_tasks: int, n_paths: int, n_steps: int,
+             ops_per_path: int = OPS_PER_PATH,
+             bytes_in_per_task: int = BYTES_IN_PER_TASK) -> tuple[float, str, float]:
     """(bound ms, what bounds it, operations) for one launch."""
     path_steps = n_tasks * n_paths * n_steps
     ops = (path_steps * (INT_OPS_PER_STEP + FP_OPS_PER_STEP[model_kind])
-           + n_tasks * n_paths * OPS_PER_PATH)
-    n_bytes = (n_tasks * BYTES_IN_PER_TASK
+           + n_tasks * n_paths * ops_per_path)
+    n_bytes = (n_tasks * bytes_in_per_task
                + n_tasks * (n_paths // BLOCK_PATHS) * BYTES_OUT_PER_BLOCK)
     t_ops = ops / PEAK_OPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
@@ -127,16 +155,25 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import mc_paths
+    from repro_torch.core import ml_allocation, platform_latencies
+    from repro_torch.kernels import mc_paths, ops
     from repro_torch.pricing import mc
     from repro_torch.pricing import (
         PricingSolver,
+        SimulatedPlatform,
         TaskBatch,
         build_cluster,
         group_by_launch,
         launch_key,
         price_batch,
         table1_workload,
+    )
+    from repro_torch.runtime import (
+        OnlineConfig,
+        OnlineScheduler,
+        Scenario,
+        Scheduler,
+        make_domain,
     )
 
     # -- phase 1: the card and the build -----------------------------------
@@ -180,18 +217,45 @@ def main() -> int:
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{key}: two kernel runs differ")
         check(bool(torch.isfinite(got).all()), f"{key}: non-finite partials")
-        diff = (got - want).abs()
-        rel = diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny)
-        rel = torch.where(diff == 0, torch.zeros_like(rel), rel)
+        err_abs, err_rel = partial_errors(got, want)
         sums_rel = ((got.sum(1) - want.sum(1)).abs()
                     / want.sum(1).abs().clamp_min(torch.finfo(torch.float32).tiny))
-        max_abs = max(max_abs, float(diff.max()))
-        max_rel = max(max_rel, float(rel.max()))
+        max_abs = max(max_abs, err_abs)
+        max_rel = max(max_rel, err_rel)
         log(f"kernel vs plain {key}: partials {tuple(got.shape)} max abs "
-            f"{float(diff.max()):.3e} max rel {float(rel.max()):.3e}; summed "
+            f"{err_abs:.3e} max rel {err_rel:.3e}; summed "
             f"moments max rel {float(sums_rel.max()):.3e}; bitwise repeat ok")
-        check(float(rel.max()) <= RTOL, f"{key}: partials differ beyond rtol {RTOL}")
+        check(err_rel <= RTOL, f"{key}: partials differ beyond rtol {RTOL}")
         check(float(sums_rel.max()) <= RTOL, f"{key}: moments differ beyond rtol {RTOL}")
+    # the single-task kernel: one task of each (model, payoff) category at
+    # the calibration shape, plus two other path-block sizes
+    task_max_abs = task_max_rel = 0.0
+    cat_tasks = table1_workload(categories=[(c, 1) for c in TASK_CATEGORIES])
+    task_cases = [(t, BLOCK_PATHS) for t in cat_tasks]
+    task_cases += [(cat_tasks[TASK_CATEGORIES.index("H-A")], 128),
+                   (cat_tasks[TASK_CATEGORIES.index("BS-DB")], 2048)]
+    for task, block in task_cases:
+        got = mc_paths.mc_moments_kernel_call(task, CALIB_PATHS, CALIB_SEED, block, dev)
+        again = mc_paths.mc_moments_kernel_call(task, CALIB_PATHS, CALIB_SEED, block, dev)
+        want = mc_paths.mc_moments_kernel_ref(task, CALIB_PATHS, CALIB_SEED, block, dev)
+        batch_sums = ops.mc_moments(task, CALIB_PATHS, CALIB_SEED, block, dev)
+        torch.cuda.synchronize()
+        name = f"task kernel {task.category} block {block}"
+        check(torch.equal(got, again), f"{name}: two kernel runs differ")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite partials")
+        check(tuple(got.shape) == (CALIB_PATHS // block, 2), f"{name}: shape {tuple(got.shape)}")
+        err_abs, err_rel = partial_errors(got, want)
+        summed = got.sum(0)
+        batch_rel = max(abs(float(summed[k]) - float(batch_sums[k]))
+                        / max(abs(float(batch_sums[k])), torch.finfo(torch.float32).tiny)
+                        for k in range(2))
+        task_max_abs = max(task_max_abs, err_abs)
+        task_max_rel = max(task_max_rel, err_rel)
+        log(f"{name}: partials {tuple(got.shape)} max abs {err_abs:.3e} "
+            f"max rel {err_rel:.3e}; summed vs batch kernel rel "
+            f"{batch_rel:.3e}; bitwise repeat ok")
+        check(err_rel <= RTOL, f"{name}: partials differ beyond rtol {RTOL}")
+        check(batch_rel <= RTOL, f"{name}: moments differ from the batch kernel beyond rtol {RTOL}")
     # the card against the CPU on a small input with continuous payoffs
     # (European, Asian: an ulp cannot flip a barrier indicator there)
     small = table1_workload(seed=7, n_steps=16,
@@ -214,6 +278,7 @@ def main() -> int:
     mc_paths.reset_launch_count()
     solver.characterise()
     launches_char = mc_paths.launch_count()
+    main_launches = {k: mc_paths.launch_count(k) for k in mc_paths.KERNELS}
     log(f"characterise: {time.perf_counter() - t0:.1f} s, kernel launches "
         f"{launches_char}")
     check(launches_char > 0, "characterise launched no kernel")
@@ -238,10 +303,12 @@ def main() -> int:
     task_by_id = {t.task_id: t for t in tasks}
     mc_paths.reset_launch_count()
     reports = {}
-    for method, kw in (("milp", dict(time_limit=60)), ("heuristic", {})):
+    allocs = {}
+    for method, kw in (("milp", dict(time_limit=60)), ("heuristic", {}), ("ml", {})):
         t1 = time.perf_counter()
         alloc = solver.allocate(ACCURACY, method=method, **kw)
         solve_s = time.perf_counter() - t1
+        allocs[method] = alloc
         check(bool(np.allclose(alloc.A.sum(axis=0), 1.0)), f"{method}: shares do not sum to 1")
         rep = solver.execute(alloc, ACCURACY)
         reports[method] = rep
@@ -295,13 +362,98 @@ def main() -> int:
                   f"{method}: task {t.task_id} price {rep.prices[t.task_id]} vs "
                   f"calibration {p_cal} beyond 5 standard errors")
     launches_exec = mc_paths.launch_count()
-    log(f"execute (both methods): kernel launches {launches_exec}")
+    for k in mc_paths.KERNELS:
+        main_launches[k] += mc_paths.launch_count(k)
+    log(f"execute (three methods): kernel launches {launches_exec}")
     check(launches_exec > 0, "execute launched no kernel")
     log(f"improvement of milp over heuristic (measured makespan): "
         f"{reports['heuristic'].measured_makespan / reports['milp'].measured_makespan:.3f}x")
+    ml = allocs["ml"]
+    check(ml.makespan <= allocs["heuristic"].makespan * (1 + 1e-6),
+          f"ml predicted makespan {ml.makespan} above the heuristic's "
+          f"{allocs['heuristic'].makespan}")
+    t1 = time.perf_counter()
+    ml_cpu = ml_allocation(solver.problem(ACCURACY), device="cpu")
+    ml_cpu_s = time.perf_counter() - t1
+    log(f"ml: anneal {ml.meta['solve_s']:.2f} s of {ml.solve_time:.2f} s solve "
+        f"(share {ml.meta['solve_s'] / ml.solve_time:.3f}) on the card; the same "
+        f"problem with device='cpu': anneal {ml_cpu.meta['solve_s']:.2f} s of "
+        f"{ml_cpu_s:.2f} s, predicted makespan {ml_cpu.makespan:.6f} s")
+    log(f"ml/milp predicted makespan {ml.makespan / allocs['milp'].makespan:.4f}; "
+        f"measured {reports['ml'].measured_makespan / reports['milp'].measured_makespan:.4f}")
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 4: timing -----------------------------------------------------
+    # -- phase 4: the online loop at full width ------------------------------
+    # For each solver, the busiest simulated platform of its phase 3 plan
+    # slows down 4x at half the planned makespan; a static plan and the
+    # online loop run under that scenario on fresh schedulers. "ml" is the
+    # issue's solver here; it leaves the local card idle on this fleet (its
+    # annealer, like the reference's, rarely moves a task onto the one
+    # platform that is ~170x faster), so the loop's path through the kernel
+    # is shown by the MILP run, whose plan puts ~92% of the work on the card.
+    t0 = time.perf_counter()
+    local_name = local.spec.name
+    sim = [i for i, p in enumerate(cluster) if isinstance(p, SimulatedPlatform)]
+
+    def fresh_scheduler(scenario):
+        sched = Scheduler(make_domain("pricing", tasks, build_cluster()), trace=True)
+        sched.characterise()
+        for p in sched.domain.platforms:
+            if isinstance(p, SimulatedPlatform):
+                p.attach_scenario(scenario)
+        return sched
+
+    def online_run(method: str, kw: dict) -> int:
+        plan = allocs[method]
+        lat = platform_latencies(plan.A, solver.problem(ACCURACY))
+        hot = max(sim, key=lambda i: lat[i])
+        slow_name, t_half = cluster[hot].spec.name, plan.makespan / 2
+        log(f"online {method}: {slow_name} (planned latency {lat[hot]:.6f} s) "
+            f"slows {SLOWDOWN}x at t={t_half:.6f} s")
+        s_static = fresh_scheduler(Scenario().slowdown(slow_name, t_half, SLOWDOWN))
+        static = s_static.execute(s_static.allocate(ACCURACY, method=method, **kw),
+                                  ACCURACY, seed=3)
+        s_online = fresh_scheduler(Scenario().slowdown(slow_name, t_half, SLOWDOWN))
+        mc_paths.reset_launch_count()
+        adaptive = OnlineScheduler(s_online, OnlineConfig(rounds=ONLINE_ROUNDS)).run(
+            ACCURACY, method=method, seed=3, **kw)
+        launches = mc_paths.launch_count()
+        for k in mc_paths.KERNELS:
+            main_launches[k] += mc_paths.launch_count(k)
+        per_round: dict = {}
+        for e in s_online.ledger.entries("latency"):
+            if e.platform == local_name:
+                got = per_round.setdefault(e.round, [0.0, 0.0])
+                got[0] += e.predicted
+                got[1] += e.measured
+        for r in adaptive.rounds:
+            pred, meas = per_round.get(r.round, (0.0, 0.0))
+            ratio = f"{pred / meas:.4f}" if meas > 0 else "n/a"
+            log(f"online {method} round {r.round}: drifted {list(r.drifted)}, solve "
+                f"{r.solve_outcome}, local paths {r.dispatched_units.get(local_name, 0)}, "
+                f"local predicted/measured latency {ratio}")
+        worst = max(adaptive.summary["measured_ci"].values())
+        log(f"online {method}: static measured makespan {static.measured_makespan:.6f} s, "
+            f"adaptive {adaptive.measured_makespan:.6f} s (static/adaptive "
+            f"{static.measured_makespan / adaptive.measured_makespan:.4f}); drift rounds "
+            f"{[r.round for r in adaptive.rounds if r.drifted]}; re-solves "
+            f"{adaptive.n_resolves}, warm-start skips {adaptive.n_skipped}, refits "
+            f"{adaptive.n_refits}; solver wall {adaptive.solve_wall_s:.2f} s; kernel "
+            f"launches {launches}; worst CI {worst:.5f} vs {ACCURACY}")
+        check(len(adaptive.summary["prices"]) == 128
+              and all(math.isfinite(p) for p in adaptive.summary["prices"].values()),
+              f"online {method}: missing or non-finite prices")
+        check(worst <= ACCURACY * 1.2, f"online {method}: worst CI {worst} misses {ACCURACY}")
+        check(math.isfinite(adaptive.measured_makespan) and adaptive.measured_makespan > 0,
+              f"online {method}: bad measured makespan")
+        return launches
+
+    online_run("ml", {})
+    check(online_run("milp", dict(time_limit=60)) > 0,
+          "the online loop launched no kernel")
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 5: timing -----------------------------------------------------
     per_group = []
     for key, batch in groups:
         n_act = torch.full((batch.n_tasks,), CALIB_PATHS, dtype=torch.uint32, device=dev)
@@ -321,13 +473,31 @@ def main() -> int:
         log(f"timing {key}: T={batch.n_tasks} paths={CALIB_PATHS}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, {ops:.4e} ops), "
             f"bound share {b_ms / k_ms:.3f}")
+    per_task = []
+    for task in cat_tasks:
+        def task_kernel():
+            mc_paths.mc_moments_kernel_call(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
+
+        def task_plain():
+            mc_paths.mc_moments_kernel_ref(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
+
+        model_kind = "heston" if task.category.startswith("H-") else "black-scholes"
+        k_ms = cuda_ms(task_kernel, reps=20, warmup=2)
+        p_ms = cuda_ms(task_plain, reps=2, warmup=1)
+        b_ms, b_by, ops_n = bound_ms(model_kind, 1, CALIB_PATHS, task.n_steps,
+                                     TASK_OPS_PER_PATH, TASK_BYTES_IN)
+        per_task.append(dict(category=task.category, paths=CALIB_PATHS, ms=k_ms,
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, ops=ops_n))
+        log(f"timing task kernel {task.category}: paths={CALIB_PATHS}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{ops_n:.4e} ops), bound share {b_ms / k_ms:.3f}")
     log(f"card: {card}")
     kernels = [{
         "name": "mc_moments_batch",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mc_paths.cu",
         "replaces": "src/repro/kernels/mc_paths.py:172",
-        "launches": launches_char + launches_exec,
+        "launches": main_launches["mc_moments_batch"],
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
         # one Table 1 calibration: the BS and the Heston launch
@@ -337,6 +507,23 @@ def main() -> int:
         "bound_by": "operations" if all(g["bound_by"] == "operations" for g in per_group) else "bytes",
         "library_ms": None,
         "per_group": per_group,
+    }, {
+        "name": "mc_moments_task",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mc_paths.cu",
+        "replaces": "src/repro/kernels/mc_paths.py:85",
+        # as in the reference, only tests and this smoke reach the
+        # single-task kernel: the main path launches it no time
+        "launches": main_launches["mc_moments_task"],
+        "max_abs_err": task_max_abs,
+        "max_rel_err": task_max_rel,
+        # one task of each of the 10 categories, 65,536 paths each
+        "ms": sum(g["ms"] for g in per_task),
+        "plain_ms": sum(g["plain_ms"] for g in per_task),
+        "bound_ms": sum(g["bound_ms"] for g in per_task),
+        "bound_by": "operations" if all(g["bound_by"] == "operations" for g in per_task) else "bytes",
+        "library_ms": None,
+        "per_category": per_task,
     }]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -5,12 +5,12 @@ Public API:
     Metric models (§3.1/§4.2): LatencyModel, AccuracyModel, CombinedModel,
         fit_latency_model, fit_accuracy_model, relative_error
     Allocation (§3.2/§4.3): AllocationProblem, Allocation, makespan,
-        proportional_allocation (eq. 11), milp_allocation (eq. 12 via
-        HiGHS), lp_polish (the exact fixed-support LP)
-    Scale: cluster_tasks / clustered_allocation (task-family super-tasks)
+        proportional_allocation (eq. 11), ml_allocation (batched
+        simulated-annealing chains in PyTorch + LP polish), milp_allocation
+        (eq. 12 via HiGHS)
+    Scale: cluster_tasks / clustered_allocation (task-family super-tasks),
+        patch_allocation (O(k) incremental re-solve for k arrivals)
     SLO tail metrics: quantile, P2Quantile, SLOConfig / SLOTracker
-
-The simulated-annealing "ml" allocator is not part of this package yet.
 """
 from .allocation import (  # noqa: F401
     SUPPORT_ATOL,
@@ -29,9 +29,10 @@ from .allocation import (  # noqa: F401
     restrict_allocation,
     restrict_problem,
 )
-from .annealing import lp_polish  # noqa: F401
+from .annealing import anneal, lp_polish, ml_allocation  # noqa: F401
 from .clustering import ClusterPlan, cluster_tasks, clustered_allocation  # noqa: F401
 from .heuristic import proportional_allocation  # noqa: F401
+from .incremental import patch_allocation  # noqa: F401
 from .metrics import (  # noqa: F401
     AccuracyModel,
     CombinedModel,

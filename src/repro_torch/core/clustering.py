@@ -275,11 +275,13 @@ def _refine(problem: AllocationProblem, A: np.ndarray,
 
 
 def _solver_table():
-    # local import: milp imports heuristic, which this module uses
+    # local import: milp/annealing import heuristic, which this module uses
+    from .annealing import ml_allocation
     from .milp import milp_allocation
 
     return {
         "heuristic": lambda p, **kw: proportional_allocation(p),
+        "ml": ml_allocation,
         "milp": milp_allocation,
     }
 

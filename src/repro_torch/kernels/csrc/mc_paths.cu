@@ -1,6 +1,6 @@
-// Family-batched Monte Carlo moments kernel for Hopper (sm_90a).
+// Monte Carlo moments kernels for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_mc_batch_kernel` in
+// mc_batch_kernel replaces the Pallas TPU kernel `_mc_batch_kernel` in
 // src/repro/kernels/mc_paths.py (launched by `mc_moments_batch_kernel_call`).
 // For every (task t, path block b) it simulates `block_paths` paths with
 // global ids b * block_paths + i, drawing a Threefry-2x32 normal pair keyed
@@ -9,17 +9,27 @@
 // sum, min and max; applies the coded five-kind payoff; masks paths with
 // id >= n_active[t]; and writes (sum payoff, sum payoff^2) to out[t, b, :].
 //
-// What bounds it: operations. Per path-step it issues about 80 int32
+// mc_task_kernel replaces the single-task Pallas kernel `_mc_kernel` in the
+// same file (launched by `mc_moments_kernel_call`): the same simulation for
+// one task whose model and payoff kind are template parameters (the TPU
+// kernel bakes the task in at trace time) and whose float32 scalars arrive
+// by value as a kernel argument; no n_active mask, since n_paths is a whole
+// number of blocks. It writes (sum, sumsq) per path block to out[b, :].
+//
+// What bounds both: operations. Per path-step they issue about 80 int32
 // operations for Threefry (20 rounds of add, rotate, xor plus 5 key
 // injections) and about 90 fp32 operations for logf, sincosf, expf and sqrtf
 // and the Euler step, all on registers. Bytes are negligible: 56 B of
 // parameters and 12 B of task scalars in per task, 8 B out per (task, block).
 //
 // Design: one thread per path, its state (S, v, sum, min, max) in registers
-// for the whole time loop. blockIdx.y is the task and blockIdx.x the path
-// block; a CUDA block of 128 or 256 threads walks block_paths / blockDim.x
-// paths per thread. Each block reads its own task's parameter row (the TPU
-// kernel's SMEM scalar prefetch has no analogue). The block's (sum, sumsq)
+// for the whole time loop. In the batch kernel blockIdx.y is the task and
+// blockIdx.x the path block; a CUDA block of 128 or 256 threads walks
+// block_paths / blockDim.x paths per thread, and each block reads its own
+// task's parameter row (the TPU kernel's SMEM scalar prefetch has no
+// analogue). The task kernel's grid is the path blocks alone, with
+// min(block_paths, 1024) threads a block, so one task's 64 blocks of 1024
+// paths still put one path on each thread. Each block's (sum, sumsq)
 // reduction is in a fixed order — a warp shuffle tree, then the warp
 // partials summed in warp order by thread 0 — so two runs are bitwise equal.
 //
@@ -40,11 +50,14 @@ enum Col : int {
 };
 
 // Payoff codes (pricing/contracts.py EUROPEAN ... DIGITAL_DOUBLE_BARRIER).
-enum Payoff : int { EUROPEAN = 0, ASIAN, BARRIER, DOUBLE_BARRIER };
+enum Payoff : int {
+  EUROPEAN = 0, ASIAN, BARRIER, DOUBLE_BARRIER, DIGITAL_DOUBLE_BARRIER
+};
 
 constexpr int kBlackScholes = 0;
 constexpr int kHeston = 1;
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;       // batch kernel
+constexpr int kMaxTaskThreads = 1024;  // task kernel
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979);
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24
 
@@ -115,67 +128,70 @@ __device__ __forceinline__ float coded_payoff(float s_t, float avg, float mn,
   }
 }
 
-template <int kModel>
-__global__ void __launch_bounds__(kMaxThreads)
-mc_batch_kernel(const float* __restrict__ params,
-                const uint32_t* __restrict__ task_ids,
-                const int32_t* __restrict__ payoff_kinds,
-                const uint32_t* __restrict__ n_active, uint32_t seed,
-                int n_steps, int block_paths, float* __restrict__ out) {
-  __shared__ float warp_sum[kMaxThreads / 32];
-  __shared__ float warp_sq[kMaxThreads / 32];
+// Per-task constants of the Euler steps, in the reference's float32 order
+// (bs_step_fn, heston_step_fn), from a PARAM_COLS row.
+struct StepConsts {
+  float spot, v0, rate, dt, drift, vol_dt, kappa, theta, xi, rho, rho_c,
+      sqrt_dt;
+};
 
-  const int t = blockIdx.y;
-  const int b = blockIdx.x;
-  const float* p = params + static_cast<size_t>(t) * N_PARAMS;
-  const uint32_t k0 = seed;
-  const uint32_t k1 = task_ids[t];
-  const int kind = payoff_kinds[t];
-  const uint32_t n_act = n_active[t];
-
-  const float spot = p[SPOT];
-  const float rate = p[RATE];
-  const float dt = p[DT];
-  // Per-task constants, in the reference's float32 order (bs_step_fn,
-  // heston_step_fn).
+__device__ __forceinline__ StepConsts step_consts(const float* p) {
+  StepConsts c;
+  c.spot = p[SPOT];
+  c.v0 = p[V0];
+  c.rate = p[RATE];
+  c.dt = p[DT];
   const float vol = p[VOL];
-  const float drift = (rate - 0.5f * vol * vol) * dt;
-  const float vol_dt = vol * sqrtf(dt);
-  const float kappa = p[KAPPA], theta = p[THETA], xi = p[XI], rho = p[RHO];
-  const float rho_c = sqrtf(fmaxf(1.0f - rho * rho, 0.0f));
-  const float sqrt_dt = sqrtf(dt);
+  c.drift = (c.rate - 0.5f * vol * vol) * c.dt;
+  c.vol_dt = vol * sqrtf(c.dt);
+  c.kappa = p[KAPPA];
+  c.theta = p[THETA];
+  c.xi = p[XI];
+  c.rho = p[RHO];
+  c.rho_c = sqrtf(fmaxf(1.0f - c.rho * c.rho, 0.0f));
+  c.sqrt_dt = sqrtf(c.dt);
+  return c;
+}
 
-  float sum = 0.0f, sumsq = 0.0f;
-  const uint32_t base = static_cast<uint32_t>(b) * static_cast<uint32_t>(block_paths);
-  for (int i = threadIdx.x; i < block_paths; i += blockDim.x) {
-    const uint32_t pid = base + static_cast<uint32_t>(i);
-    float s = spot, v = p[V0], acc = 0.0f, mn = spot, mx = spot;
-    for (int step = 0; step < n_steps; ++step) {
-      float z0, z1;
-      normal_pair(k0, k1, pid, static_cast<uint32_t>(step), z0, z1);
-      if (kModel == kBlackScholes) {
-        s = s * expf(drift + vol_dt * z0);
-      } else {
-        const float z_v = rho * z0 + rho_c * z1;
-        const float v_plus = fmaxf(v, 0.0f);
-        const float sqrt_v = sqrtf(v_plus);
-        const float s_new =
-            s * expf((rate - 0.5f * v_plus) * dt + sqrt_v * sqrt_dt * z0);
-        v = v + kappa * (theta - v_plus) * dt + xi * sqrt_v * sqrt_dt * z_v;
-        s = s_new;
-      }
-      acc = acc + s;
-      mn = fminf(mn, s);
-      mx = fmaxf(mx, s);
+// One path `pid` through n_steps: terminal price, running average over the
+// post-initial observations, and min/max including the initial spot.
+template <int kModel>
+__device__ __forceinline__ void simulate_path(const StepConsts& c, uint32_t k0,
+                                              uint32_t k1, uint32_t pid,
+                                              int n_steps, float& s_t,
+                                              float& avg, float& mn,
+                                              float& mx) {
+  float s = c.spot, v = c.v0, acc = 0.0f;
+  mn = c.spot;
+  mx = c.spot;
+  for (int step = 0; step < n_steps; ++step) {
+    float z0, z1;
+    normal_pair(k0, k1, pid, static_cast<uint32_t>(step), z0, z1);
+    if (kModel == kBlackScholes) {
+      s = s * expf(c.drift + c.vol_dt * z0);
+    } else {
+      const float z_v = c.rho * z0 + c.rho_c * z1;
+      const float v_plus = fmaxf(v, 0.0f);
+      const float sqrt_v = sqrtf(v_plus);
+      const float s_new =
+          s * expf((c.rate - 0.5f * v_plus) * c.dt + sqrt_v * c.sqrt_dt * z0);
+      v = v + c.kappa * (c.theta - v_plus) * c.dt +
+          c.xi * sqrt_v * c.sqrt_dt * z_v;
+      s = s_new;
     }
-    const float avg = acc / static_cast<float>(n_steps);
-    float pay = coded_payoff(s, avg, mn, mx, p, kind);
-    if (pid >= n_act) pay = 0.0f;
-    sum += pay;
-    sumsq += pay * pay;
+    acc = acc + s;
+    mn = fminf(mn, s);
+    mx = fmaxf(mx, s);
   }
+  s_t = s;
+  avg = acc / static_cast<float>(n_steps);
+}
 
-  // Fixed-order block reduction: shuffle tree per warp, then warp order.
+// Fixed-order block reduction of (sum, sumsq): shuffle tree per warp, then
+// the warp partials in warp order by thread 0, which writes o[0..1].
+__device__ __forceinline__ void block_sum_store(float sum, float sumsq,
+                                                float* warp_sum,
+                                                float* warp_sq, float* o) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     sum += __shfl_down_sync(0xffffffffu, sum, off);
@@ -193,9 +209,99 @@ mc_batch_kernel(const float* __restrict__ params,
       a += warp_sum[w];
       q += warp_sq[w];
     }
-    float* o = out + (static_cast<size_t>(t) * gridDim.x + b) * 2;
     o[0] = a;
     o[1] = q;
+  }
+}
+
+template <int kModel>
+__global__ void __launch_bounds__(kMaxThreads)
+mc_batch_kernel(const float* __restrict__ params,
+                const uint32_t* __restrict__ task_ids,
+                const int32_t* __restrict__ payoff_kinds,
+                const uint32_t* __restrict__ n_active, uint32_t seed,
+                int n_steps, int block_paths, float* __restrict__ out) {
+  __shared__ float warp_sum[kMaxThreads / 32];
+  __shared__ float warp_sq[kMaxThreads / 32];
+
+  const int t = blockIdx.y;
+  const int b = blockIdx.x;
+  const float* p = params + static_cast<size_t>(t) * N_PARAMS;
+  const uint32_t k1 = task_ids[t];
+  const int kind = payoff_kinds[t];
+  const uint32_t n_act = n_active[t];
+  const StepConsts c = step_consts(p);
+
+  float sum = 0.0f, sumsq = 0.0f;
+  const uint32_t base = static_cast<uint32_t>(b) * static_cast<uint32_t>(block_paths);
+  for (int i = threadIdx.x; i < block_paths; i += blockDim.x) {
+    const uint32_t pid = base + static_cast<uint32_t>(i);
+    float s_t, avg, mn, mx;
+    simulate_path<kModel>(c, seed, k1, pid, n_steps, s_t, avg, mn, mx);
+    float pay = coded_payoff(s_t, avg, mn, mx, p, kind);
+    if (pid >= n_act) pay = 0.0f;
+    sum += pay;
+    sumsq += pay * pay;
+  }
+  block_sum_store(sum, sumsq, warp_sum, warp_sq,
+                  out + (static_cast<size_t>(t) * gridDim.x + b) * 2);
+}
+
+// One task's float32 scalars in PARAM_COLS order, passed by value.
+struct TaskScalars {
+  float p[N_PARAMS];
+};
+
+template <int kModel, int kPayoff>
+__global__ void __launch_bounds__(kMaxTaskThreads)
+mc_task_kernel(const TaskScalars task, uint32_t seed, uint32_t task_id,
+               int n_steps, int block_paths, float* __restrict__ out) {
+  __shared__ float warp_sum[kMaxTaskThreads / 32];
+  __shared__ float warp_sq[kMaxTaskThreads / 32];
+
+  const int b = blockIdx.x;
+  const StepConsts c = step_consts(task.p);
+
+  float sum = 0.0f, sumsq = 0.0f;
+  const uint32_t base = static_cast<uint32_t>(b) * static_cast<uint32_t>(block_paths);
+  for (int i = threadIdx.x; i < block_paths; i += blockDim.x) {
+    const uint32_t pid = base + static_cast<uint32_t>(i);
+    float s_t, avg, mn, mx;
+    simulate_path<kModel>(c, seed, task_id, pid, n_steps, s_t, avg, mn, mx);
+    const float pay = coded_payoff(s_t, avg, mn, mx, task.p, kPayoff);
+    sum += pay;
+    sumsq += pay * pay;
+  }
+  block_sum_store(sum, sumsq, warp_sum, warp_sq,
+                  out + static_cast<size_t>(b) * 2);
+}
+
+template <int kModel>
+void launch_task(const TaskScalars& task, uint32_t seed, uint32_t task_id,
+                 int payoff_kind, int n_steps, int blocks, int block_paths,
+                 int threads, float* out, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(blocks));
+  switch (payoff_kind) {
+    case EUROPEAN:
+      mc_task_kernel<kModel, EUROPEAN><<<grid, threads, 0, s>>>(
+          task, seed, task_id, n_steps, block_paths, out);
+      break;
+    case ASIAN:
+      mc_task_kernel<kModel, ASIAN><<<grid, threads, 0, s>>>(
+          task, seed, task_id, n_steps, block_paths, out);
+      break;
+    case BARRIER:
+      mc_task_kernel<kModel, BARRIER><<<grid, threads, 0, s>>>(
+          task, seed, task_id, n_steps, block_paths, out);
+      break;
+    case DOUBLE_BARRIER:
+      mc_task_kernel<kModel, DOUBLE_BARRIER><<<grid, threads, 0, s>>>(
+          task, seed, task_id, n_steps, block_paths, out);
+      break;
+    default:
+      mc_task_kernel<kModel, DIGITAL_DOUBLE_BARRIER><<<grid, threads, 0, s>>>(
+          task, seed, task_id, n_steps, block_paths, out);
+      break;
   }
 }
 
@@ -222,6 +328,36 @@ extern "C" int mc_moments_batch_launch(
   } else {
     mc_batch_kernel<kHeston><<<grid, threads, 0, s>>>(
         params, task_ids, payoff_kinds, n_active, seed, n_steps, block_paths, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the single-task kernel on `stream` over `blocks` blocks of
+// `threads` threads and returns cudaGetLastError() (0 on success).
+// `scalars` is a HOST pointer to the task's N_PARAMS float32 scalars in
+// PARAM_COLS order, copied into the kernel argument; out is a device
+// pointer to (blocks, 2) float32.
+extern "C" int mc_moments_task_launch(const float* scalars, uint32_t seed,
+                                      uint32_t task_id, int model_kind,
+                                      int payoff_kind, int n_steps, int blocks,
+                                      int block_paths, int threads, float* out,
+                                      void* stream) {
+  if (scalars == nullptr || blocks < 1 || n_steps < 1 || threads < 32 ||
+      threads > kMaxTaskThreads || threads % 32 != 0 ||
+      block_paths < threads ||
+      (model_kind != kBlackScholes && model_kind != kHeston) ||
+      payoff_kind < EUROPEAN || payoff_kind > DIGITAL_DOUBLE_BARRIER) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TaskScalars task;
+  for (int i = 0; i < N_PARAMS; ++i) task.p[i] = scalars[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (model_kind == kBlackScholes) {
+    launch_task<kBlackScholes>(task, seed, task_id, payoff_kind, n_steps,
+                               blocks, block_paths, threads, out, s);
+  } else {
+    launch_task<kHeston>(task, seed, task_id, payoff_kind, n_steps, blocks,
+                         block_paths, threads, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,21 @@
-"""The family-batched Monte Carlo moments kernel: CUDA wrapper + plain version.
+"""The Monte Carlo moments kernels: CUDA wrappers + plain versions.
 
-``mc_moments_batch_kernel_call`` launches the CUDA C++ kernel of
-``csrc/mc_paths.cu`` (the port of the reference's Pallas ``_mc_batch_kernel``)
-on CUDA tensors; ``mc_moments_batch_ref`` is its plain PyTorch version, which
-runs on any device and returns the same (T, blocks, 2) partial
-(sum payoff, sum payoff^2) per (task, path block). The CPU path and the
-on-card comparison use the plain version; on a CUDA tensor the main path
-always launches the kernel or raises.
+``mc_moments_batch_kernel_call`` launches the family-batched CUDA C++ kernel
+of ``csrc/mc_paths.cu`` (the port of the reference's Pallas
+``_mc_batch_kernel``) on CUDA tensors; ``mc_moments_batch_ref`` is its plain
+PyTorch version, which runs on any device and returns the same
+(T, blocks, 2) partial (sum payoff, sum payoff^2) per (task, path block).
+The CPU path and the on-card comparison use the plain version; on a CUDA
+tensor the main path always launches the kernel or raises.
 
-The kernel is built with ``nvcc`` from the source at first use into
+``mc_moments_kernel_call`` launches the single-task kernel of the same
+source (the port of the reference's Pallas ``_mc_kernel``, whose task is
+baked in at trace time: here model and payoff kind are template
+parameters) and returns the (blocks, 2) partials of one task;
+``mc_moments_kernel_ref`` is its plain version. As in the reference, only
+tests and the card's smoke run reach it.
+
+The kernels are built with ``nvcc`` from the source at first use into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
 ``ctypes``), once per process under a lock: platforms launch from several
 threads.
@@ -25,24 +32,34 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.pricing.contracts import (
     COL,
     N_PARAMS,
+    PricingTask,
     TaskBatch,
     bs_step_fn,
     heston_step_fn,
+    payoff_from_stats,
     payoff_from_stats_coded,
 )
 from .prng import normal_pair
 
 __all__ = [
-    "mc_moments_batch_kernel_call", "mc_moments_batch_ref", "batch_path_stats",
+    "mc_moments_batch_kernel_call", "mc_moments_batch_ref",
+    "mc_moments_kernel_call", "mc_moments_kernel_ref", "batch_path_stats",
     "validate_blocking", "build", "launch_count", "reset_launch_count",
-    "BLOCK_QUANTUM", "DEFAULT_BLOCK_PATHS",
+    "KERNELS", "BLOCK_QUANTUM", "DEFAULT_BLOCK_PATHS",
 ]
+
+#: The kernels of ``csrc/mc_paths.cu``, by the name their launches count under.
+KERNELS = ("mc_moments_batch", "mc_moments_task")
 
 #: ``block_paths`` must be a whole number of 128-thread CUDA blocks.
 BLOCK_QUANTUM = 128
+
+#: Threads of a single-task kernel block: one path each up to 1024 paths.
+MAX_TASK_THREADS = 1024
 
 #: The one path-block default shared by every engine entry point. A
 #: 1024-path block gives each of 256 threads four paths; 65,536 calibration
@@ -140,6 +157,20 @@ def mc_moments_batch_ref(batch: TaskBatch, n_active: torch.Tensor, seed: int,
     return torch.stack([pay.sum(dim=2), (pay * pay).sum(dim=2)], dim=2)
 
 
+def mc_moments_kernel_ref(task: PricingTask, n_paths: int, seed: int,
+                          block_paths: int = DEFAULT_BLOCK_PATHS,
+                          device: str | torch.device = "cuda") -> torch.Tensor:
+    """Plain version of the single-task kernel: (blocks, 2) partial
+    (sum, sumsq) of paths ``0 .. n_paths`` of ``task``, with the non-coded
+    payoff. Runs on ``device``."""
+    blocks = validate_blocking(n_paths, block_paths)
+    batch = TaskBatch.from_tasks([task], device)
+    s_t, avg, mn, mx = (x[0] for x in batch_path_stats(batch, n_paths, seed))
+    pay = payoff_from_stats(s_t, avg, mn, mx, task.option)
+    pay = pay.reshape(blocks, block_paths)
+    return torch.stack([pay.sum(dim=1), (pay * pay).sum(dim=1)], dim=1)
+
+
 # --------------------------------------------------------------------------
 # The CUDA kernel: build, load, launch
 # --------------------------------------------------------------------------
@@ -203,6 +234,11 @@ class _KernelLibrary:
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ptr, ptr]
                 lib.mc_moments_batch_launch.restype = ctypes.c_int
+                lib.mc_moments_task_launch.argtypes = [
+                    ctypes.POINTER(ctypes.c_float), ctypes.c_uint32,
+                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ptr]
+                lib.mc_moments_task_launch.restype = ctypes.c_int
                 lib.mc_error_string.argtypes = [ctypes.c_int]
                 lib.mc_error_string.restype = ctypes.c_char_p
                 self._lib = lib
@@ -211,7 +247,7 @@ class _KernelLibrary:
 
 _LIBRARY = _KernelLibrary(_SOURCE, _BUILD_DIR)
 _COUNT_LOCK = threading.Lock()
-_launches = 0
+_launches = dict.fromkeys(KERNELS, 0)
 
 
 def build() -> str:
@@ -220,15 +256,22 @@ def build() -> str:
     return _LIBRARY.ptxas_log
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+def launch_count(kernel: str = "mc_moments_batch") -> int:
+    """Launches of ``kernel`` (one of :data:`KERNELS`) since the last
+    :func:`reset_launch_count`."""
+    return _launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _launches
+    """Set the launch count of every kernel to 0."""
     with _COUNT_LOCK:
-        _launches = 0
+        for name in KERNELS:
+            _launches[name] = 0
+
+
+def _count_launch(kernel: str) -> None:
+    with _COUNT_LOCK:
+        _launches[kernel] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -282,10 +325,53 @@ def mc_moments_batch_kernel_call(batch: TaskBatch, n_active: torch.Tensor,
             _MODEL_CODES[batch.model_kind], T, batch.n_steps, blocks,
             block_paths, threads, out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(lib, rc, "mc_moments_batch")
+    _count_launch("mc_moments_batch")
+    return out
+
+
+def _raise_on_error(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"mc_moments_batch launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
                            f"({lib.mc_error_string(rc).decode()})")
-    global _launches
-    with _COUNT_LOCK:
-        _launches += 1
+
+
+def mc_moments_kernel_call(task: PricingTask, n_paths: int, seed: int,
+                           block_paths: int = DEFAULT_BLOCK_PATHS,
+                           device: str | torch.device = "cuda"
+                           ) -> torch.Tensor:
+    """Launch the single-task CUDA kernel on PyTorch's current stream.
+
+    Simulates paths ``0 .. n_paths`` of ``task`` (``n_paths`` a multiple of
+    ``block_paths``) and returns the (blocks, 2) float32 partials
+    (sum payoff, sum payoff^2) on ``device``. Raises unless ``device`` is
+    a CUDA device.
+    """
+    blocks = validate_blocking(n_paths, block_paths)
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {device}; "
+                         "use mc_moments_kernel_ref on the CPU")
+    if n_paths >= 2 ** 32:
+        raise ValueError(f"n_paths={n_paths} overflows uint32 path ids")
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed={seed} must fit in uint32")
+    if not 0 <= task.task_id < 2 ** 32:
+        raise ValueError(f"task_id={task.task_id} must fit in uint32")
+    if task.n_steps < 1:
+        raise ValueError(f"n_steps={task.n_steps} must be positive")
+    # the same float32 scalars as the task's row of a TaskBatch
+    row = TaskBatch.from_tasks([task], "cpu")
+    scalars = (ctypes.c_float * N_PARAMS)(*row.params[0].tolist())
+    lib = _LIBRARY.get()
+    out = torch.empty((blocks, 2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.mc_moments_task_launch(
+            scalars, int(seed), int(task.task_id),
+            _MODEL_CODES[row.model_kind], int(task.option.payoff),
+            task.n_steps, blocks, block_paths,
+            min(block_paths, MAX_TASK_THREADS), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(lib, rc, "mc_moments_task")
+    _count_launch("mc_moments_task")
     return out

@@ -28,6 +28,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "BlackScholes", "Heston", "bs_step_fn", "heston_step_fn",
     "EUROPEAN", "ASIAN", "BARRIER", "DOUBLE_BARRIER", "DIGITAL_DOUBLE_BARRIER",
@@ -37,20 +39,6 @@ __all__ = [
     "family_key", "group_by_family", "launch_key", "group_by_launch",
     "resolve_device",
 ]
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The device an entry point runs on; "cuda" without a card raises.
-
-    Entry points default to the card and never continue on the CPU unless
-    the caller asks for it.
-    """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but no CUDA card is available; "
-            "pass device='cpu' to run the plain PyTorch path")
-    return device
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:

@@ -194,7 +194,7 @@ class _TaskMoments:
     def __init__(self, calib_paths: int = 65536,
                  device: str | torch.device = "cuda"):
         self.calib_paths = calib_paths
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._cache: dict[int, tuple[float, float]] = {}
         self._lock = threading.Lock()
 

@@ -34,6 +34,7 @@ from repro_torch.core import (
     clustered_allocation,
     makespan,
     milp_allocation,
+    ml_allocation,
     proportional_allocation,
 )
 from repro_torch.obs import (
@@ -55,11 +56,10 @@ from .faults import (
 
 __all__ = ["Scheduler", "RuntimeReport", "DispatchResult", "SOLVERS"]
 
-#: The allocation approaches of §4.3, shared by every domain. The third,
-#: "ml" (simulated annealing + LP polish), waits for the port of the
-#: reference's annealer; asking for it raises a KeyError naming it.
+#: The three allocation approaches of §4.3, shared by every domain.
 SOLVERS: dict[str, Callable[..., Allocation]] = {
     "heuristic": lambda p, **kw: proportional_allocation(p),
+    "ml": lambda p, **kw: ml_allocation(p, **kw),
     "milp": lambda p, **kw: milp_allocation(p, **kw),
 }
 
@@ -349,9 +349,6 @@ class Scheduler:
         many structurally identical tasks solve at family count, not task
         count. ``cluster_rtol`` merges near-identical families at bounded
         relative error."""
-        if method not in SOLVERS:
-            raise KeyError(f"solver {method!r} is not available in this "
-                           f"package; pick from {sorted(SOLVERS)}")
         problem = self.problem(quality)
         with self.tracer.span("allocate", track="scheduler", cat="solve",
                               method=method, cluster=cluster) as sp:

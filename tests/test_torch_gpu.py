@@ -1,4 +1,4 @@
-"""The CUDA moments kernel against its plain version, on the card.
+"""The CUDA moments kernels against their plain versions, on the card.
 
 Marked ``gpu``: every test skips without a CUDA card (decided inside the
 ``cuda`` fixture, so every xdist worker collects the same tests). Imports
@@ -93,3 +93,49 @@ def test_local_platform_on_card(cuda):
     for r, w in zip(recs, want):
         assert r.latency > 0
         np.testing.assert_allclose(r.price, float(w.price), rtol=RTOL)
+
+
+_TASK_CATEGORIES = ["BS-E", "BS-A", "BS-B", "BS-DB", "BS-DDB",
+                    "H-E", "H-A", "H-B", "H-DB", "H-DDB"]
+
+
+@pytest.mark.parametrize("category", _TASK_CATEGORIES)
+def test_task_kernel_matches_plain_version(cuda, category):
+    """The single-task kernel against its plain version, for every model x
+    payoff instantiation; bitwise repeatable; and its summed moments agree
+    with the batch kernel run on the task as a batch of one."""
+    task = workload.table1_workload(seed=8, n_steps=64,
+                                    categories=[(category, 1)])[0]
+    before = mc_paths.launch_count("mc_moments_task")
+    got = mc_paths.mc_moments_kernel_call(task, 8192, 21, 1024, device=cuda)
+    again = mc_paths.mc_moments_kernel_call(task, 8192, 21, 1024, device=cuda)
+    want = mc_paths.mc_moments_kernel_ref(task, 8192, 21, 1024, device=cuda)
+    s, s2 = ops.mc_moments(task, 8192, seed=21, device=cuda)
+    torch.cuda.synchronize()
+    assert mc_paths.launch_count("mc_moments_task") == before + 2
+    assert got.shape == (8, 2)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL)
+    np.testing.assert_allclose(got.sum(dim=0).cpu().numpy(),
+                               [float(s), float(s2)], rtol=RTOL)
+
+
+@pytest.mark.parametrize("block_paths", [128, 2048])
+def test_task_kernel_block_sweep(cuda, block_paths):
+    task = PricingTask(Heston(90.0, 0.02, 0.09, 1.5, 0.06, 0.4, -0.6),
+                       asian(90.0), maturity=2.0, n_steps=64, task_id=13)
+    got = mc_paths.mc_moments_kernel_call(task, 8192, 2, block_paths, device=cuda)
+    want = mc_paths.mc_moments_kernel_ref(task, 8192, 2, block_paths, device=cuda)
+    torch.cuda.synchronize()
+    assert got.shape == (8192 // block_paths, 2)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL)
+
+
+def test_task_kernel_checks_inputs(cuda):
+    task = workload.table1_workload(seed=5, n_steps=8, categories=[("BS-A", 1)])[0]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mc_paths.mc_moments_kernel_call(task, 1000, 0, 100, device=cuda)
+    with pytest.raises(ValueError, match="multiple of block_paths"):
+        mc_paths.mc_moments_kernel_call(task, 1000, 0, 256, device=cuda)
+    with pytest.raises(ValueError, match="seed"):
+        mc_paths.mc_moments_kernel_call(task, 1024, -1, 256, device=cuda)

@@ -182,3 +182,37 @@ def test_ops_validates_inputs():
         ops.mc_moments_batch(batch, [1024, -1], seed=0)
     with pytest.raises(ValueError, match="seed"):
         ops.mc_moments_batch(batch, [1024, 1024], seed=-1)
+
+
+@pytest.mark.parametrize("name", list(OPTIONS))
+@pytest.mark.parametrize("underlying", ["bs", "heston"])
+def test_task_partials_match_pallas_interpret(name, underlying):
+    """The single-task kernel's plain version against the reference's
+    ``_mc_kernel`` in interpret mode: (blocks, 2) partials, as
+    tests/test_kernels.py runs it (2048 paths, 256-path blocks)."""
+    task, ref_task = _task_pair(underlying, OPTIONS[name], n_steps=8, task_id=14)
+    want = np.asarray(ref_mc_paths.mc_moments_kernel_call(
+        ref_task, 2048, seed=3, block_paths=256, interpret=True))
+    got = mc_paths.mc_moments_kernel_ref(task, 2048, 3, 256, device="cpu").numpy()
+    assert got.shape == want.shape == (8, 2)
+    np.testing.assert_array_equal(got == 0.0, want == 0.0)
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_task_kernel_rejects_bad_blocks():
+    """tests/test_kernels.py's blocking errors, from both the plain version
+    and the kernel wrapper (which checks before it needs a card)."""
+    task, _ = _task_pair("bs", european(100.0), n_steps=4, task_id=15)
+    for call in (mc_paths.mc_moments_kernel_ref, mc_paths.mc_moments_kernel_call):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            call(task, 1000, 0, block_paths=100, device="cpu")
+        with pytest.raises(ValueError, match="multiple of block_paths"):
+            call(task, 1000, 0, block_paths=256, device="cpu")
+
+
+def test_task_kernel_call_refuses_cpu():
+    task, _ = _task_pair("heston", asian(95.0), n_steps=4, task_id=16)
+    before = mc_paths.launch_count("mc_moments_task")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        mc_paths.mc_moments_kernel_call(task, 1024, 0, 256, device="cpu")
+    assert mc_paths.launch_count("mc_moments_task") == before

@@ -6,8 +6,11 @@ import torch
 from repro.pricing import LocalJaxPlatform
 from repro.pricing import mc as ref_mc
 from repro.pricing import workload as ref_workload
+from repro_torch.pricing.platforms import _TaskMoments
 from repro_torch.pricing import (
+    TABLE2_SPECS,
     LocalTorchPlatform,
+    SimulatedPlatform,
     build_cluster,
     launch_count,
     mc,
@@ -91,6 +94,10 @@ def test_entry_points_refuse_cuda_without_card(monkeypatch):
     for call in (lambda: price(tasks[0], 1024),
                  lambda: price_batch(tasks, 1024),
                  lambda: LocalTorchPlatform(),
-                 lambda: build_cluster()):
+                 lambda: build_cluster(),
+                 # the calibration cache refuses at construction, not at
+                 # its first launch
+                 lambda: _TaskMoments(),
+                 lambda: SimulatedPlatform(TABLE2_SPECS[0])):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()

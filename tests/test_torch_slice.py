@@ -81,12 +81,20 @@ def test_allocate_and_execute_match(solvers, method):
 
 
 def test_ml_solver_waits_for_its_port(solvers):
+    """The "ml" solver is ported: it allocates the slice's problem, plain and
+    clustered, within the reference tests' order milp <= ml <= heuristic."""
     _, port = solvers
-    assert sorted(pricing.SOLVERS) == ["heuristic", "milp"]
-    with pytest.raises(KeyError, match="'ml'"):
-        port.allocate(ACCURACY, "ml")
-    with pytest.raises(KeyError, match="'ml'"):
-        port.allocate(ACCURACY, "ml", cluster=True)
+    assert sorted(pricing.SOLVERS) == ["heuristic", "milp", "ml"]
+    heur = port.allocate(ACCURACY, "heuristic")
+    milp = port.allocate(ACCURACY, "milp", time_limit=30)
+    for cluster in (False, True):
+        ml = port.allocate(ACCURACY, "ml", cluster=cluster, chains=8,
+                           steps=1500, rounds=1, device="cpu")
+        assert ml.solver == "ml" or ml.meta.get("method") == "ml"
+        np.testing.assert_allclose(ml.A.sum(axis=0), 1.0)
+        assert ml.makespan <= heur.makespan * (1 + 1e-6)
+        if milp.optimal:
+            assert milp.makespan <= ml.makespan * (1 + 1e-4)
 
 
 def test_local_platform_in_the_loop_cpu():
