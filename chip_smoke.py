@@ -9,21 +9,28 @@ Phases, each of which exits non-zero on failure:
    name) and build the kernels from ``src/repro_torch/kernels/csrc``.
 2. Hold both CUDA kernels against their plain PyTorch versions on the card:
    the family-batched moments kernel at the calibration shape of each
-   Table 1 launch group and on a ragged path-count case; the single-task
-   kernel on one task of each of the 10 (model, payoff) categories, at
-   three path-block sizes, and against the batch kernel on the same task.
-   Two runs of a kernel must be bitwise equal; the card must agree with
-   the CPU on a small input.
+   Table 1 launch group, on a ragged path-count case at three path-block
+   sizes, with zero-count tasks, and with one 4,194,304-path task among
+   short ones (the slots of inactive blocks must be exactly 0, in memory
+   poisoned with NaN first); the single-task kernel on one task of each of
+   the 10 (model, payoff) categories, at three path-block sizes, and
+   against the batch kernel on the same task. Two runs of a kernel must be
+   bitwise equal; the card must agree with the CPU on a small input.
 3. Drive the main path: ``PricingSolver(table1_workload(), build_cluster())``
    — 128 tasks of 256 steps on the 16 simulated Table 2 platforms plus the
    local card — through characterise, allocate (MILP, heuristic and the
-   simulated-annealing "ml" solver) and execute, counting kernel launches.
+   simulated-annealing "ml" solver) and execute, counting kernel launches
+   and the paths the card simulated against the paths asked for.
 4. Drive the online loop on the same workload and cluster: a static "ml"
    plan and ``OnlineScheduler`` with "ml", both under a 4x slowdown of the
    busiest simulated platform at the plan's half-makespan.
 5. Time both kernels, their plain versions and their bounds with CUDA
-   events at the shapes of phase 2, and print one ``{"kernels": [...]}``
-   line.
+   events at the calibration shapes of phase 2 (the batch kernel also at
+   the MILP plan's local execute launches of phase 3, those small enough
+   and the smallest of each model held against the plain version as in
+   phase 2), print each
+   launch's CTAs and waves and the SM clock, and print one
+   ``{"kernels": [...]}`` line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the reference package ``repro``.
@@ -42,6 +49,16 @@ ACCURACY = 0.05
 CALIB_PATHS = 65536
 CALIB_SEED = 10_007
 BLOCK_PATHS = 1024
+# the long-tail case: one task of this many paths among <= 4,096-path ones
+LONG_TAIL_PATHS = 4_194_304
+# the card's paths simulated over paths asked, on the local execute launches
+MAX_SIMULATED_OVER_ASKED = 1.01
+# the MILP execute launches held against the plain version in phase 5: all
+# whose plain version simulates at most this many paths (about 10 s each)
+PLAIN_CHECK_PATHS = 2 ** 25
+# LocalTorchPlatform.run_batch prices each shard list twice: an untimed
+# warm-up, then the timed run
+RUNS_PER_DISPATCH = 2
 # kernel against plain version, both on the card: bit-equal Threefry draws
 # through the same CUDA math library, so only the float32 summation order
 # of the 1024-path block sums differs. rtol 3e-5 is the reference's own
@@ -103,6 +120,12 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# GPU clock cycles (about 20 ms at 2 GHz) that the stream spins before a
+# timed run, so the host enqueues the run's launches while the card waits
+# and the events time the launches back to back, not the host's enqueue
+SPIN_CYCLES = 40_000_000
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` calls, by CUDA
     events around the whole run, after ``warmup`` untimed calls."""
@@ -111,6 +134,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -132,18 +156,153 @@ def partial_errors(got, want) -> tuple[float, float]:
     return float(diff.max()), float(rel.max())
 
 
-def bound_ms(model_kind: str, n_tasks: int, n_paths: int, n_steps: int,
-             ops_per_path: int = OPS_PER_PATH,
+def bound_ms(model_kind: str, n_tasks: int, paths: int, n_steps: int,
+             out_blocks: int, ops_per_path: int = OPS_PER_PATH,
              bytes_in_per_task: int = BYTES_IN_PER_TASK) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, operations) for one launch."""
-    path_steps = n_tasks * n_paths * n_steps
-    ops = (path_steps * (INT_OPS_PER_STEP + FP_OPS_PER_STEP[model_kind])
-           + n_tasks * n_paths * ops_per_path)
-    n_bytes = (n_tasks * bytes_in_per_task
-               + n_tasks * (n_paths // BLOCK_PATHS) * BYTES_OUT_PER_BLOCK)
+    """(bound ms, what bounds it, operations) for one launch of ``n_tasks``
+    tasks that ask for ``paths`` paths in all and write ``out_blocks``
+    (sum, sumsq) pairs: only the paths asked for are counted."""
+    ops = paths * n_steps * (INT_OPS_PER_STEP + FP_OPS_PER_STEP[model_kind]) + paths * ops_per_path
+    n_bytes = n_tasks * bytes_in_per_task + out_blocks * BYTES_OUT_PER_BLOCK
     t_ops = ops / PEAK_OPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def waves(ctas: int, per_sm: int, sms: int) -> tuple[float, float]:
+    """(waves, idle share of the last wave) of ``ctas`` CTAs on ``sms`` SMs
+    that hold ``per_sm`` each at once."""
+    w = ctas / (per_sm * sms)
+    return w, (math.ceil(w) - w) / max(math.ceil(w), 1)
+
+
+def poison(shape, device) -> None:
+    """Allocate and free NaN-filled tensors of ``shape``, so the caching
+    allocator hands the next allocations of that size back unzeroed."""
+    import torch
+
+    junk = [torch.full(shape, float("nan"), device=device) for _ in range(3)]
+    del junk
+
+
+def inactive_slots_zero(got, n_active, block_paths: int, mc_paths) -> bool:
+    """True if every (task, block) slot past a task's active blocks is
+    exactly 0 in the (T, blocks, 2) partials ``got``."""
+    import numpy as np
+
+    offsets = mc_paths.active_block_offsets(n_active, block_paths)
+    active = np.diff(offsets)
+    return all(bool((got[t, int(active[t]):] == 0).all()) for t in range(got.shape[0]))
+
+
+def check_batch_case(mc_paths, key, batch, n_active, block: int, dev) -> tuple[float, float]:
+    """Hold the batch kernel against its plain version on the card for one
+    launch: two runs in NaN-poisoned memory must be bitwise equal, finite,
+    exactly 0 in the slots of inactive blocks, and within ``RTOL`` of the
+    plain version, slot by slot and summed. Returns (max abs, max rel)."""
+    import torch
+
+    n_max = -(-int(n_active.max()) // block) * block
+    n_act = torch.from_numpy(n_active).to(dev)
+    poison((batch.n_tasks, n_max // block, 2), dev)
+    got = mc_paths.mc_moments_batch_kernel_call(batch, n_active, CALIB_SEED, n_max, block)
+    again = mc_paths.mc_moments_batch_kernel_call(batch, n_active, CALIB_SEED, n_max, block)
+    want = mc_paths.mc_moments_batch_ref(batch, n_act, CALIB_SEED, n_max, block)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{key}: two kernel runs differ")
+    check(bool(torch.isfinite(got).all()), f"{key}: non-finite partials")
+    check(inactive_slots_zero(got, n_active, block, mc_paths),
+          f"{key}: a slot of an inactive block is not exactly 0")
+    err_abs, err_rel = partial_errors(got, want)
+    sums_rel = ((got.sum(1) - want.sum(1)).abs()
+                / want.sum(1).abs().clamp_min(torch.finfo(torch.float32).tiny))
+    log(f"kernel vs plain {key}: partials {tuple(got.shape)} max abs "
+        f"{err_abs:.3e} max rel {err_rel:.3e}; summed "
+        f"moments max rel {float(sums_rel.max()):.3e}; {mc_paths.last_launch_ctas()} "
+        f"CTAs; bitwise repeat ok; inactive slots exactly 0")
+    check(err_rel <= RTOL, f"{key}: partials differ beyond rtol {RTOL}")
+    check(float(sums_rel.max()) <= RTOL, f"{key}: moments differ beyond rtol {RTOL}")
+    return err_abs, err_rel
+
+
+def time_kernels(mc_paths, groups, milp_launches, cat_tasks, sms: int, dev):
+    """Phase 5's timings: (per calibration group, per execute launch, per
+    single-task category), each a list of dicts, also logged."""
+    import numpy as np
+    import torch
+    from repro_torch.pricing import TaskBatch
+
+    per_group = []
+    for key, batch in groups:
+        n_act = np.full(batch.n_tasks, CALIB_PATHS, np.uint32)
+        n_act_dev = torch.from_numpy(n_act).to(dev)
+        per_sm = mc_paths.ctas_per_sm("mc_moments_batch", batch.model_kind)
+
+        def kernel():
+            mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, CALIB_PATHS,
+                                                  BLOCK_PATHS)
+
+        def plain():
+            mc_paths.mc_moments_batch_ref(batch, n_act_dev, CALIB_SEED, CALIB_PATHS, BLOCK_PATHS)
+
+        k_ms = cuda_ms(kernel, reps=20, warmup=2)
+        ctas = mc_paths.last_launch_ctas()
+        k_ms_again = cuda_ms(kernel, reps=20, warmup=0)
+        p_ms = cuda_ms(plain, reps=2, warmup=1)
+        b_ms, b_by, ops = bound_ms(batch.model_kind, batch.n_tasks, batch.n_tasks * CALIB_PATHS,
+                                   batch.n_steps, batch.n_tasks * (CALIB_PATHS // BLOCK_PATHS))
+        w, idle = waves(ctas, per_sm, sms)
+        per_group.append(dict(group=f"{key[0]}/{key[1]}", tasks=batch.n_tasks,
+                              paths=CALIB_PATHS, ms=k_ms, ms_repeat=k_ms_again,
+                              plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by, ops=ops, ctas=ctas, ctas_per_sm=per_sm,
+                              waves=w, last_wave_idle=idle))
+        log(f"timing {key}: T={batch.n_tasks} paths={CALIB_PATHS}: kernel {k_ms:.4f} ms "
+            f"(again {k_ms_again:.4f}), plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{ops:.4e} ops), bound share {b_ms / k_ms:.3f}; {ctas} CTAs, {per_sm} per SM "
+            f"on {sms} SMs: {w:.3f} waves, last wave {idle:.1%} idle")
+    execute = []
+    for tasks_k, ns in milp_launches:
+        batch = TaskBatch.from_tasks(tasks_k, dev)
+        n_max = -(-int(ns.max()) // BLOCK_PATHS) * BLOCK_PATHS
+        per_sm = mc_paths.ctas_per_sm("mc_moments_batch", batch.model_kind)
+        k_ms = cuda_ms(lambda: mc_paths.mc_moments_batch_kernel_call(
+            batch, ns, CALIB_SEED, n_max, BLOCK_PATHS), reps=5, warmup=1)
+        ctas = mc_paths.last_launch_ctas()
+        b_ms, b_by, ops = bound_ms(batch.model_kind, batch.n_tasks, int(ns.sum()), batch.n_steps,
+                                   batch.n_tasks * (n_max // BLOCK_PATHS))
+        w, idle = waves(ctas, per_sm, sms)
+        execute.append(dict(model=batch.model_kind, tasks=batch.n_tasks, paths=int(ns.sum()),
+                            max_paths=int(ns.max()), ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                            ctas=ctas, ctas_per_sm=per_sm, waves=w, last_wave_idle=idle))
+        log(f"timing milp local execute launch {batch.model_kind}: T={batch.n_tasks}, paths "
+            f"asked {int(ns.sum())} ({int(ns.min())}..{int(ns.max())} a task): kernel "
+            f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), bound share {b_ms / k_ms:.3f}; "
+            f"{ctas} CTAs, {w:.3f} waves, last wave {idle:.1%} idle")
+    per_task = []
+    for task in cat_tasks:
+        def task_kernel():
+            mc_paths.mc_moments_kernel_call(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
+
+        def task_plain():
+            mc_paths.mc_moments_kernel_ref(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
+
+        model_kind = "heston" if task.category.startswith("H-") else "black-scholes"
+        k_ms = cuda_ms(task_kernel, reps=20, warmup=2)
+        ctas = mc_paths.last_launch_ctas("mc_moments_task")
+        per_sm = mc_paths.ctas_per_sm("mc_moments_task", model_kind, int(task.option.payoff))
+        p_ms = cuda_ms(task_plain, reps=2, warmup=1)
+        b_ms, b_by, ops_n = bound_ms(model_kind, 1, CALIB_PATHS, task.n_steps,
+                                     CALIB_PATHS // BLOCK_PATHS, TASK_OPS_PER_PATH, TASK_BYTES_IN)
+        w, idle = waves(ctas, per_sm, sms)
+        per_task.append(dict(category=task.category, paths=CALIB_PATHS, ms=k_ms,
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, ops=ops_n,
+                             ctas=ctas, ctas_per_sm=per_sm, waves=w))
+        log(f"timing task kernel {task.category}: paths={CALIB_PATHS}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{ops_n:.4e} ops), bound share {b_ms / k_ms:.3f}; {ctas} CTAs on {sms} SMs "
+            f"({per_sm} fit on an SM): {w:.3f} waves")
+    return per_group, execute, per_task
 
 
 def main() -> int:
@@ -194,8 +353,10 @@ def main() -> int:
     check(len(tasks) == 128 and {t.n_steps for t in tasks} == {256},
           "Table 1 workload is not 128 tasks of 256 steps")
     groups = []
+    group_tasks = []
     for key, group in group_by_launch(tasks):
-        groups.append((key, TaskBatch.from_tasks([t for _, t in group], dev)))
+        group_tasks.append([t for _, t in group])
+        groups.append((key, TaskBatch.from_tasks(group_tasks[-1], dev)))
 
     # -- phase 2: kernel against plain version on the card -----------------
     t0 = time.perf_counter()
@@ -204,29 +365,22 @@ def main() -> int:
     cases = []
     for key, batch in groups:
         full = np.full(batch.n_tasks, CALIB_PATHS, np.uint32)
-        cases.append((key, batch, full, CALIB_PATHS))
+        cases.append((key, batch, full, BLOCK_PATHS))
     ragged_key, ragged_batch = groups[-1]
     ragged = rng.integers(64, 20_000, size=ragged_batch.n_tasks).astype(np.uint32)
-    ragged_max = -(-int(ragged.max()) // BLOCK_PATHS) * BLOCK_PATHS
-    cases.append((ragged_key + ("ragged",), ragged_batch, ragged, ragged_max))
-    for key, batch, n_active, n_max in cases:
-        n_act = torch.from_numpy(n_active).to(dev)
-        got = mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
-        again = mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
-        want = mc_paths.mc_moments_batch_ref(batch, n_act, CALIB_SEED, n_max, BLOCK_PATHS)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{key}: two kernel runs differ")
-        check(bool(torch.isfinite(got).all()), f"{key}: non-finite partials")
-        err_abs, err_rel = partial_errors(got, want)
-        sums_rel = ((got.sum(1) - want.sum(1)).abs()
-                    / want.sum(1).abs().clamp_min(torch.finfo(torch.float32).tiny))
+    for block in (BLOCK_PATHS, 128, 2048):
+        cases.append((ragged_key + ("ragged", block), ragged_batch, ragged, block))
+    zero = ragged.copy()
+    zero[::3] = 0  # every third task asks for no path
+    cases.append((ragged_key + ("zero counts",), ragged_batch, zero, BLOCK_PATHS))
+    # one long task among short ones and a zero: six tasks of the BS group
+    tail_batch = TaskBatch.from_tasks(group_tasks[0][:6], dev)
+    tail = np.array([4096, 0, LONG_TAIL_PATHS, 1, 2500, 1024], np.uint32)
+    cases.append((groups[0][0] + ("long tail",), tail_batch, tail, BLOCK_PATHS))
+    for key, batch, n_active, block in cases:
+        err_abs, err_rel = check_batch_case(mc_paths, key, batch, n_active, block, dev)
         max_abs = max(max_abs, err_abs)
         max_rel = max(max_rel, err_rel)
-        log(f"kernel vs plain {key}: partials {tuple(got.shape)} max abs "
-            f"{err_abs:.3e} max rel {err_rel:.3e}; summed "
-            f"moments max rel {float(sums_rel.max()):.3e}; bitwise repeat ok")
-        check(err_rel <= RTOL, f"{key}: partials differ beyond rtol {RTOL}")
-        check(float(sums_rel.max()) <= RTOL, f"{key}: moments differ beyond rtol {RTOL}")
     # the single-task kernel: one task of each (model, payoff) category at
     # the calibration shape, plus two other path-block sizes
     task_max_abs = task_max_rel = 0.0
@@ -304,13 +458,16 @@ def main() -> int:
     mc_paths.reset_launch_count()
     reports = {}
     allocs = {}
+    milp_launches = []  # (tasks, path counts) of each local execute launch
     for method, kw in (("milp", dict(time_limit=60)), ("heuristic", {}), ("ml", {})):
         t1 = time.perf_counter()
         alloc = solver.allocate(ACCURACY, method=method, **kw)
         solve_s = time.perf_counter() - t1
         allocs[method] = alloc
         check(bool(np.allclose(alloc.A.sum(axis=0), 1.0)), f"{method}: shares do not sum to 1")
+        units0 = mc_paths.units_launched()
         rep = solver.execute(alloc, ACCURACY)
+        simulated = (mc_paths.units_launched() - units0) * mc_paths.BLOCK_QUANTUM
         reports[method] = rep
         worst = max(rep.measured_ci.values())
         local_share = float(alloc.A[-1].sum() / alloc.A.shape[1])
@@ -319,20 +476,29 @@ def main() -> int:
             f"(error {rep.makespan_error:.2%}); local share {local_share:.3f}; "
             f"local latency {rep.platform_latencies[local.spec.name]:.6f} s; "
             f"worst CI {worst:.5f} vs {ACCURACY}")
-        # the local platform's launches pad each ragged bucket of shards to
-        # its largest path count (whole blocks): the work the card really did
-        requested = padded = 0
-        for plat, launch_groups in solver.scheduler.shards(alloc, solver.problem(ACCURACY)):
-            if plat is not local:
-                continue
-            for group in launch_groups:
-                ns = [units for _, units in group]
-                for bucket in mc._ragged_buckets(ns):
-                    n_pad = -(-max(ns[k] for k in bucket) // BLOCK_PATHS) * BLOCK_PATHS
-                    requested += sum(ns[k] for k in bucket)
-                    padded += n_pad * len(bucket)
-        log(f"{method}: local paths requested {requested}, simulated with "
-            f"padding {padded} ({padded / max(requested, 1):.3f}x)")
+        # what the card simulated, from the units the batch kernel's launches
+        # ran during this execute, against the paths the plan asked of it
+        requested = RUNS_PER_DISPATCH * sum(
+            r.n_paths for r in rep.records if r.platform == local.spec.name)
+        ratio = simulated / max(requested, 1)
+        log(f"{method}: local paths asked {requested} ({RUNS_PER_DISPATCH} runs of each "
+            f"shard list), simulated by the launched units {simulated} ({ratio:.6f}x)")
+        if requested == 0:
+            check(simulated == 0, f"{method}: the card simulated {simulated} paths unasked")
+        else:
+            check(1.0 <= ratio <= MAX_SIMULATED_OVER_ASKED,
+                  f"{method}: the card simulated {ratio:.4f}x the paths asked for")
+        if method == "milp":
+            # the local launches of this plan, one per ragged bucket of shards,
+            # for phase 5
+            for plat, launch_groups in solver.scheduler.shards(alloc, solver.problem(ACCURACY)):
+                if plat is not local:
+                    continue
+                for group in launch_groups:
+                    ns = [units for _, units in group]
+                    for bucket in mc._ragged_buckets(ns):
+                        milp_launches.append(([group[k][0] for k in bucket],
+                                              np.array([ns[k] for k in bucket], np.int64)))
         by_group: dict = {}
         for r in rep.records:
             if r.platform == local.spec.name:
@@ -454,43 +620,45 @@ def main() -> int:
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: timing -----------------------------------------------------
-    per_group = []
-    for key, batch in groups:
-        n_act = torch.full((batch.n_tasks,), CALIB_PATHS, dtype=torch.uint32, device=dev)
-
-        def kernel():
-            mc_paths.mc_moments_batch_kernel_call(batch, n_act, CALIB_SEED, CALIB_PATHS, BLOCK_PATHS)
-
-        def plain():
-            mc_paths.mc_moments_batch_ref(batch, n_act, CALIB_SEED, CALIB_PATHS, BLOCK_PATHS)
-
-        k_ms = cuda_ms(kernel, reps=20, warmup=2)
-        p_ms = cuda_ms(plain, reps=2, warmup=1)
-        b_ms, b_by, ops = bound_ms(batch.model_kind, batch.n_tasks, CALIB_PATHS, batch.n_steps)
-        per_group.append(dict(group=f"{key[0]}/{key[1]}", tasks=batch.n_tasks,
-                              paths=CALIB_PATHS, ms=k_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by, ops=ops))
-        log(f"timing {key}: T={batch.n_tasks} paths={CALIB_PATHS}: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, {ops:.4e} ops), "
-            f"bound share {b_ms / k_ms:.3f}")
-    per_task = []
-    for task in cat_tasks:
-        def task_kernel():
-            mc_paths.mc_moments_kernel_call(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
-
-        def task_plain():
-            mc_paths.mc_moments_kernel_ref(task, CALIB_PATHS, CALIB_SEED, BLOCK_PATHS, dev)
-
-        model_kind = "heston" if task.category.startswith("H-") else "black-scholes"
-        k_ms = cuda_ms(task_kernel, reps=20, warmup=2)
-        p_ms = cuda_ms(task_plain, reps=2, warmup=1)
-        b_ms, b_by, ops_n = bound_ms(model_kind, 1, CALIB_PATHS, task.n_steps,
-                                     TASK_OPS_PER_PATH, TASK_BYTES_IN)
-        per_task.append(dict(category=task.category, paths=CALIB_PATHS, ms=k_ms,
-                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, ops=ops_n))
-        log(f"timing task kernel {task.category}: paths={CALIB_PATHS}: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{ops_n:.4e} ops), bound share {b_ms / k_ms:.3f}")
+    # first the MILP plan's own execute shapes against the plain version, as
+    # in phase 2: every local launch whose plain version simulates at most
+    # PLAIN_CHECK_PATHS paths, and the smallest launch of each model
+    t0 = time.perf_counter()
+    execute_launches = []
+    for tasks_k, ns in milp_launches:
+        batch = TaskBatch.from_tasks(tasks_k, dev)
+        execute_launches.append((len(tasks_k) * -(-int(ns.max()) // BLOCK_PATHS) * BLOCK_PATHS,
+                         batch, ns))
+    check(bool(execute_launches), "the MILP plan gave the card no launch")
+    execute_launches.sort(key=lambda x: x[0])
+    models_seen = set()
+    for plain_paths, batch, ns in execute_launches:
+        if plain_paths > PLAIN_CHECK_PATHS and batch.model_kind in models_seen:
+            continue
+        models_seen.add(batch.model_kind)
+        err_abs, err_rel = check_batch_case(
+            mc_paths, (batch.model_kind, "milp execute", f"T={batch.n_tasks}", int(ns.sum())),
+            batch, ns, BLOCK_PATHS, dev)
+        max_abs = max(max_abs, err_abs)
+        max_rel = max(max_rel, err_rel)
+    log(f"milp execute launches against the plain version: {time.perf_counter() - t0:.1f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the SM clock and power, sampled every 200 ms while the kernels run
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        per_group, execute, per_task = time_kernels(
+            mc_paths, groups, milp_launches, cat_tasks, sms, dev)
+    finally:
+        clocks.terminate()
+        samples = clocks.communicate(timeout=30)[0]
+    mhz = [float(line.split(",")[0]) for line in samples.splitlines() if line.strip()]
+    watts = [float(line.split(",")[1]) for line in samples.splitlines() if line.strip()]
+    check(bool(mhz), "nvidia-smi gave no clock samples")
+    log(f"SM clock during the timing: {len(mhz)} samples, min {min(mhz):.0f} MHz, "
+        f"median {sorted(mhz)[len(mhz) // 2]:.0f} MHz, max {max(mhz):.0f} MHz; power "
+        f"median {sorted(watts)[len(watts) // 2]:.1f} W, max {max(watts):.1f} W")
     log(f"card: {card}")
     kernels = [{
         "name": "mc_moments_batch",
@@ -507,6 +675,8 @@ def main() -> int:
         "bound_by": "operations" if all(g["bound_by"] == "operations" for g in per_group) else "bytes",
         "library_ms": None,
         "per_group": per_group,
+        # the MILP plan's local execute launches of phase 3
+        "execute": execute,
     }, {
         "name": "mc_moments_task",
         "route": "cuda",

@@ -16,22 +16,38 @@
 // by value as a kernel argument; no n_active mask, since n_paths is a whole
 // number of blocks. It writes (sum, sumsq) per path block to out[b, :].
 //
-// What bounds both: operations. Per path-step they issue about 80 int32
-// operations for Threefry (20 rounds of add, rotate, xor plus 5 key
-// injections) and about 90 fp32 operations for logf, sincosf, expf and sqrtf
-// and the Euler step, all on registers. Bytes are negligible: 56 B of
-// parameters and 12 B of task scalars in per task, 8 B out per (task, block).
+// What bounds both on this card: instruction issue in the step loop. Per
+// path-step a thread runs Threefry-2x32 (20 rounds of add, rotate, xor and
+// 5 key injections: about 70 integer instructions, which go to the ALU
+// pipe of 16 lanes per SM sub-partition, one warp instruction every two
+// cycles) and the accurate logf, sqrtf, sincosf and expf of Box-Muller and
+// the Euler step (FP32 pipe, and the MUFU pipe for ex2/rsqrt). Bytes are
+// negligible: 68 B in per task, 8 B out per (task, block).
 //
-// Design: one thread per path, its state (S, v, sum, min, max) in registers
-// for the whole time loop. In the batch kernel blockIdx.y is the task and
-// blockIdx.x the path block; a CUDA block of 128 or 256 threads walks
-// block_paths / blockDim.x paths per thread, and each block reads its own
-// task's parameter row (the TPU kernel's SMEM scalar prefetch has no
-// analogue). The task kernel's grid is the path blocks alone, with
-// min(block_paths, 1024) threads a block, so one task's 64 blocks of 1024
-// paths still put one path on each thread. Each block's (sum, sumsq)
-// reduction is in a fixed order — a warp shuffle tree, then the warp
-// partials summed in warp order by thread 0 — so two runs are bitwise equal.
+// Design. The work unit is kUnit = 128 paths: one path per thread of a
+// 128-thread CTA, its state (S, v, sum, min, max) in registers for the
+// whole step loop.
+// - Padding. The batch kernel's grid is the flat list of ACTIVE (task,
+//   block) pairs, those with b * block_paths < n_active[t], each split into
+//   block_paths / kUnit units. The wrapper builds the int32 prefix offsets
+//   of ceil(n_active[t] / block_paths) on the host, from host counts, and a
+//   CTA finds its task by a binary search over them; a thread whose path id
+//   is >= n_active[t] skips the step loop, so a warp past a task's last
+//   path issues nothing. A launch simulates the paths asked for, rounded up
+//   to whole warps, not every task up to the largest count.
+// - Waves. A unit is one path per thread, so the last wave of CTAs is one
+//   path long. __launch_bounds__ pins the registers at the counts that fit
+//   16 (Black-Scholes) and 12 (Heston) CTAs on an SM. The step loop is
+//   unrolled by two, so a thread has two steps' independent Threefry work
+//   to issue where one step's transcendentals stall; this carries the
+//   single-task kernel, whose 512 CTAs leave about 4 warps a scheduler.
+// - SM fill. The single-task kernel also runs one CTA per unit: 512 CTAs
+//   for 65,536 paths, on all 132 SMs.
+// - Combine. Each CTA reduces its unit's (sum, sumsq) in a fixed order (a
+//   warp shuffle tree, then the four warp partials in warp order) into a
+//   scratch array; mc_combine_kernel then sums each (task, block)'s units
+//   in unit order into out and writes exactly 0 to the slots of inactive
+//   blocks. No atomics: two runs are bitwise equal.
 //
 // Numerics: build WITHOUT --use_fast_math and WITH --fmad=false. Fast math
 // would swap logf/sincosf/expf/sqrtf for approximations and break the float32
@@ -56,8 +72,9 @@ enum Payoff : int {
 
 constexpr int kBlackScholes = 0;
 constexpr int kHeston = 1;
-constexpr int kMaxThreads = 256;       // batch kernel
-constexpr int kMaxTaskThreads = 1024;  // task kernel
+constexpr int kUnit = 128;  // paths of a work unit = threads of a CTA
+constexpr int kWarps = kUnit / 32;
+constexpr int kCombineThreads = 256;
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979);
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24
 
@@ -164,6 +181,8 @@ __device__ __forceinline__ void simulate_path(const StepConsts& c, uint32_t k0,
   float s = c.spot, v = c.v0, acc = 0.0f;
   mn = c.spot;
   mx = c.spot;
+  // two steps a pass (see the note at the top)
+#pragma unroll 2
   for (int step = 0; step < n_steps; ++step) {
     float z0, z1;
     normal_pair(k0, k1, pid, static_cast<uint32_t>(step), z0, z1);
@@ -187,11 +206,12 @@ __device__ __forceinline__ void simulate_path(const StepConsts& c, uint32_t k0,
   avg = acc / static_cast<float>(n_steps);
 }
 
-// Fixed-order block reduction of (sum, sumsq): shuffle tree per warp, then
-// the warp partials in warp order by thread 0, which writes o[0..1].
-__device__ __forceinline__ void block_sum_store(float sum, float sumsq,
-                                                float* warp_sum,
-                                                float* warp_sq, float* o) {
+// Fixed-order reduction of one unit's (sum, sumsq): shuffle tree per warp,
+// then the kWarps warp partials in warp order by thread 0, which writes
+// o[0..1]. Ends with a barrier, so the shared partials may be reused.
+__device__ __forceinline__ void unit_sum_store(float sum, float sumsq,
+                                               float* warp_sum, float* warp_sq,
+                                               float* o) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     sum += __shfl_down_sync(0xffffffffu, sum, off);
@@ -205,46 +225,75 @@ __device__ __forceinline__ void block_sum_store(float sum, float sumsq,
   __syncthreads();
   if (threadIdx.x == 0) {
     float a = 0.0f, q = 0.0f;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
       a += warp_sum[w];
       q += warp_sq[w];
     }
     o[0] = a;
     o[1] = q;
   }
+  __syncthreads();
 }
 
+// The task of active block `a`: the last t with offsets[t] <= a, so that
+// offsets[t] <= a < offsets[t + 1] (tasks with no active block are empty
+// ranges and never match). offsets has n_tasks + 1 entries, offsets[0] = 0.
+__device__ __forceinline__ int task_of_block(const int32_t* __restrict__ offsets,
+                                             int n_tasks, int a) {
+  int lo = 0, hi = n_tasks;  // offsets[lo] <= a < offsets[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(offsets + mid) <= a) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Registers pinned by __launch_bounds__ so that 16 (Black-Scholes, <= 32
+// registers: the SM's 2,048 threads) or 12 (Heston, <= 40) CTAs of kUnit
+// threads fit on an SM.
 template <int kModel>
-__global__ void __launch_bounds__(kMaxThreads)
+struct BatchOccupancy {
+  static constexpr int kCtasPerSm = kModel == kBlackScholes ? 16 : 12;
+};
+
+// One CTA per unit u = blockIdx.x of the active-block list: unit u is part
+// u % units_per_block of active block a = u / units_per_block. It writes
+// the unit's (sum, sumsq) to partial[u, :].
+template <int kModel>
+__global__ void __launch_bounds__(kUnit, BatchOccupancy<kModel>::kCtasPerSm)
 mc_batch_kernel(const float* __restrict__ params,
                 const uint32_t* __restrict__ task_ids,
                 const int32_t* __restrict__ payoff_kinds,
-                const uint32_t* __restrict__ n_active, uint32_t seed,
-                int n_steps, int block_paths, float* __restrict__ out) {
-  __shared__ float warp_sum[kMaxThreads / 32];
-  __shared__ float warp_sq[kMaxThreads / 32];
+                const uint32_t* __restrict__ n_active,
+                const int32_t* __restrict__ block_offsets, uint32_t seed,
+                int n_tasks, int n_steps, int units_per_block,
+                float* __restrict__ partial) {
+  __shared__ float warp_sum[kWarps];
+  __shared__ float warp_sq[kWarps];
 
-  const int t = blockIdx.y;
-  const int b = blockIdx.x;
+  const int u = static_cast<int>(blockIdx.x);
+  const int a = u / units_per_block;
+  const int t = task_of_block(block_offsets, n_tasks, a);
+  const uint32_t b = static_cast<uint32_t>(a - __ldg(block_offsets + t));
+  const uint32_t pid = (b * static_cast<uint32_t>(units_per_block) +
+                        static_cast<uint32_t>(u - a * units_per_block)) *
+                           kUnit + threadIdx.x;
   const float* p = params + static_cast<size_t>(t) * N_PARAMS;
-  const uint32_t k1 = task_ids[t];
-  const int kind = payoff_kinds[t];
-  const uint32_t n_act = n_active[t];
-  const StepConsts c = step_consts(p);
-
-  float sum = 0.0f, sumsq = 0.0f;
-  const uint32_t base = static_cast<uint32_t>(b) * static_cast<uint32_t>(block_paths);
-  for (int i = threadIdx.x; i < block_paths; i += blockDim.x) {
-    const uint32_t pid = base + static_cast<uint32_t>(i);
+  float pay = 0.0f;
+  if (pid < __ldg(n_active + t)) {
+    const StepConsts c = step_consts(p);
     float s_t, avg, mn, mx;
-    simulate_path<kModel>(c, seed, k1, pid, n_steps, s_t, avg, mn, mx);
-    float pay = coded_payoff(s_t, avg, mn, mx, p, kind);
-    if (pid >= n_act) pay = 0.0f;
-    sum += pay;
-    sumsq += pay * pay;
+    simulate_path<kModel>(c, seed, __ldg(task_ids + t), pid, n_steps, s_t,
+                          avg, mn, mx);
+    pay = coded_payoff(s_t, avg, mn, mx, p, __ldg(payoff_kinds + t));
   }
-  block_sum_store(sum, sumsq, warp_sum, warp_sq,
-                  out + (static_cast<size_t>(t) * gridDim.x + b) * 2);
+  unit_sum_store(pay, pay * pay, warp_sum, warp_sq,
+                 partial + static_cast<size_t>(u) * 2);
 }
 
 // One task's float32 scalars in PARAM_COLS order, passed by value.
@@ -252,114 +301,171 @@ struct TaskScalars {
   float p[N_PARAMS];
 };
 
+// One CTA per unit: paths blockIdx.x * kUnit + threadIdx.x of the task.
 template <int kModel, int kPayoff>
-__global__ void __launch_bounds__(kMaxTaskThreads)
+__global__ void __launch_bounds__(kUnit)
 mc_task_kernel(const TaskScalars task, uint32_t seed, uint32_t task_id,
-               int n_steps, int block_paths, float* __restrict__ out) {
-  __shared__ float warp_sum[kMaxTaskThreads / 32];
-  __shared__ float warp_sq[kMaxTaskThreads / 32];
+               int n_steps, float* __restrict__ partial) {
+  __shared__ float warp_sum[kWarps];
+  __shared__ float warp_sq[kWarps];
 
-  const int b = blockIdx.x;
   const StepConsts c = step_consts(task.p);
+  const uint32_t pid = blockIdx.x * static_cast<uint32_t>(kUnit) + threadIdx.x;
+  float s_t, avg, mn, mx;
+  simulate_path<kModel>(c, seed, task_id, pid, n_steps, s_t, avg, mn, mx);
+  const float pay = coded_payoff(s_t, avg, mn, mx, task.p, kPayoff);
+  unit_sum_store(pay, pay * pay, warp_sum, warp_sq,
+                 partial + static_cast<size_t>(blockIdx.x) * 2);
+}
 
-  float sum = 0.0f, sumsq = 0.0f;
-  const uint32_t base = static_cast<uint32_t>(b) * static_cast<uint32_t>(block_paths);
-  for (int i = threadIdx.x; i < block_paths; i += blockDim.x) {
-    const uint32_t pid = base + static_cast<uint32_t>(i);
-    float s_t, avg, mn, mx;
-    simulate_path<kModel>(c, seed, task_id, pid, n_steps, s_t, avg, mn, mx);
-    const float pay = coded_payoff(s_t, avg, mn, mx, task.p, kPayoff);
-    sum += pay;
-    sumsq += pay * pay;
+// out[t, b, :] = the sum, in unit order, of the units_per_block unit
+// partials of block b of task t, or exactly 0 if that block is inactive.
+// block_offsets == nullptr means every block is active and unit partials
+// lie in (t, b) order (the single-task kernel).
+__global__ void __launch_bounds__(kCombineThreads)
+mc_combine_kernel(const float* __restrict__ partial,
+                  const int32_t* __restrict__ block_offsets, int n_tasks,
+                  int blocks, int units_per_block, float* __restrict__ out) {
+  const int i = blockIdx.x * kCombineThreads + threadIdx.x;
+  if (i >= n_tasks * blocks) return;
+  int first = i;
+  if (block_offsets != nullptr) {
+    const int t = i / blocks;
+    const int b = i - t * blocks;
+    const int start = __ldg(block_offsets + t);
+    first = b < __ldg(block_offsets + t + 1) - start ? start + b : -1;
   }
-  block_sum_store(sum, sumsq, warp_sum, warp_sq,
-                  out + static_cast<size_t>(b) * 2);
+  float sum = 0.0f, sumsq = 0.0f;
+  if (first >= 0) {
+    const float* p = partial + static_cast<size_t>(first) * units_per_block * 2;
+    for (int k = 0; k < units_per_block; ++k) {
+      sum += p[2 * k];
+      sumsq += p[2 * k + 1];
+    }
+  }
+  out[2 * static_cast<size_t>(i)] = sum;
+  out[2 * static_cast<size_t>(i) + 1] = sumsq;
+}
+
+void launch_combine(const float* partial, const int32_t* block_offsets,
+                    int n_tasks, int blocks, int units_per_block, float* out,
+                    cudaStream_t s) {
+  const int slots = n_tasks * blocks;
+  mc_combine_kernel<<<(slots + kCombineThreads - 1) / kCombineThreads,
+                      kCombineThreads, 0, s>>>(partial, block_offsets, n_tasks,
+                                               blocks, units_per_block, out);
 }
 
 template <int kModel>
-void launch_task(const TaskScalars& task, uint32_t seed, uint32_t task_id,
-                 int payoff_kind, int n_steps, int blocks, int block_paths,
-                 int threads, float* out, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(blocks));
+const void* task_kernel(int payoff_kind) {
   switch (payoff_kind) {
-    case EUROPEAN:
-      mc_task_kernel<kModel, EUROPEAN><<<grid, threads, 0, s>>>(
-          task, seed, task_id, n_steps, block_paths, out);
-      break;
-    case ASIAN:
-      mc_task_kernel<kModel, ASIAN><<<grid, threads, 0, s>>>(
-          task, seed, task_id, n_steps, block_paths, out);
-      break;
-    case BARRIER:
-      mc_task_kernel<kModel, BARRIER><<<grid, threads, 0, s>>>(
-          task, seed, task_id, n_steps, block_paths, out);
-      break;
+    case EUROPEAN: return reinterpret_cast<const void*>(&mc_task_kernel<kModel, EUROPEAN>);
+    case ASIAN: return reinterpret_cast<const void*>(&mc_task_kernel<kModel, ASIAN>);
+    case BARRIER: return reinterpret_cast<const void*>(&mc_task_kernel<kModel, BARRIER>);
     case DOUBLE_BARRIER:
-      mc_task_kernel<kModel, DOUBLE_BARRIER><<<grid, threads, 0, s>>>(
-          task, seed, task_id, n_steps, block_paths, out);
-      break;
+      return reinterpret_cast<const void*>(&mc_task_kernel<kModel, DOUBLE_BARRIER>);
     default:
-      mc_task_kernel<kModel, DIGITAL_DOUBLE_BARRIER><<<grid, threads, 0, s>>>(
-          task, seed, task_id, n_steps, block_paths, out);
-      break;
+      return reinterpret_cast<const void*>(&mc_task_kernel<kModel, DIGITAL_DOUBLE_BARRIER>);
   }
 }
+
+bool valid_kinds(int model_kind, int payoff_kind) {
+  return (model_kind == kBlackScholes || model_kind == kHeston) &&
+         payoff_kind >= EUROPEAN && payoff_kind <= DIGITAL_DOUBLE_BARRIER;
+}
+
+constexpr int kMaxInt = 2147483647;
 
 }  // namespace
 
-// Launches the kernel on `stream` over a (blocks, n_tasks) grid of
-// `threads`-thread blocks and returns cudaGetLastError() (0 on success).
-// All pointers are device pointers; out is (n_tasks, blocks, 2) float32.
+// Launches the batch kernel, one CTA per unit, for the n_units =
+// block_offsets[n_tasks] * block_paths / kUnit units of the active-block
+// list, then the combine kernel, both on `stream`; returns
+// cudaGetLastError() (0 on success). All pointers are device pointers:
+// block_offsets is the (n_tasks + 1,) int32 prefix sum of each task's
+// active blocks, partial is (n_units, 2) float32 scratch, and out is the
+// (n_tasks, blocks, 2) float32 result, every slot of which is written.
 extern "C" int mc_moments_batch_launch(
     const float* params, const uint32_t* task_ids, const int32_t* payoff_kinds,
-    const uint32_t* n_active, uint32_t seed, int model_kind, int n_tasks,
-    int n_steps, int blocks, int block_paths, int threads, float* out,
-    void* stream) {
-  if (n_tasks < 1 || n_tasks > 65535 || blocks < 1 || n_steps < 1 ||
-      (threads != 128 && threads != 256) || block_paths % threads != 0 ||
-      (model_kind != kBlackScholes && model_kind != kHeston)) {
+    const uint32_t* n_active, const int32_t* block_offsets, uint32_t seed,
+    int model_kind, int n_tasks, int n_steps, int blocks, int block_paths,
+    int n_units, float* partial, float* out, void* stream) {
+  if (n_tasks < 1 || blocks < 1 || n_steps < 1 || block_paths < kUnit ||
+      block_paths % kUnit != 0 || n_units < 0 ||
+      n_tasks > kMaxInt / blocks || !valid_kinds(model_kind, EUROPEAN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_tasks));
+  const int units_per_block = block_paths / kUnit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (model_kind == kBlackScholes) {
-    mc_batch_kernel<kBlackScholes><<<grid, threads, 0, s>>>(
-        params, task_ids, payoff_kinds, n_active, seed, n_steps, block_paths, out);
-  } else {
-    mc_batch_kernel<kHeston><<<grid, threads, 0, s>>>(
-        params, task_ids, payoff_kinds, n_active, seed, n_steps, block_paths, out);
+  if (n_units > 0) {
+    const dim3 grid(static_cast<unsigned>(n_units));
+    if (model_kind == kBlackScholes) {
+      mc_batch_kernel<kBlackScholes><<<grid, kUnit, 0, s>>>(
+          params, task_ids, payoff_kinds, n_active, block_offsets, seed,
+          n_tasks, n_steps, units_per_block, partial);
+    } else {
+      mc_batch_kernel<kHeston><<<grid, kUnit, 0, s>>>(
+          params, task_ids, payoff_kinds, n_active, block_offsets, seed,
+          n_tasks, n_steps, units_per_block, partial);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  launch_combine(partial, block_offsets, n_tasks, blocks, units_per_block, out, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the single-task kernel on `stream` over `blocks` blocks of
-// `threads` threads and returns cudaGetLastError() (0 on success).
-// `scalars` is a HOST pointer to the task's N_PARAMS float32 scalars in
-// PARAM_COLS order, copied into the kernel argument; out is a device
-// pointer to (blocks, 2) float32.
+// Launches the single-task kernel on `stream` over blocks * block_paths /
+// kUnit CTAs, one per unit, then the combine kernel; returns
+// cudaGetLastError() (0 on success). `scalars` is a HOST pointer to the
+// task's N_PARAMS float32 scalars in PARAM_COLS order, copied into the
+// kernel argument; partial is device scratch of (units, 2) float32 and out
+// a device pointer to (blocks, 2) float32.
 extern "C" int mc_moments_task_launch(const float* scalars, uint32_t seed,
                                       uint32_t task_id, int model_kind,
                                       int payoff_kind, int n_steps, int blocks,
-                                      int block_paths, int threads, float* out,
-                                      void* stream) {
-  if (scalars == nullptr || blocks < 1 || n_steps < 1 || threads < 32 ||
-      threads > kMaxTaskThreads || threads % 32 != 0 ||
-      block_paths < threads ||
-      (model_kind != kBlackScholes && model_kind != kHeston) ||
-      payoff_kind < EUROPEAN || payoff_kind > DIGITAL_DOUBLE_BARRIER) {
+                                      int block_paths, float* partial,
+                                      float* out, void* stream) {
+  if (scalars == nullptr || blocks < 1 || n_steps < 1 ||
+      block_paths < kUnit || block_paths % kUnit != 0 ||
+      blocks > kMaxInt / (block_paths / kUnit) ||
+      !valid_kinds(model_kind, payoff_kind)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TaskScalars task;
   for (int i = 0; i < N_PARAMS; ++i) task.p[i] = scalars[i];
+  const int units_per_block = block_paths / kUnit;
+  const dim3 grid(static_cast<unsigned>(blocks * units_per_block));
+  const void* kernel = model_kind == kBlackScholes
+                           ? task_kernel<kBlackScholes>(payoff_kind)
+                           : task_kernel<kHeston>(payoff_kind);
+  void* args[] = {&task, &seed, &task_id, &n_steps, &partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (model_kind == kBlackScholes) {
-    launch_task<kBlackScholes>(task, seed, task_id, payoff_kind, n_steps,
-                               blocks, block_paths, threads, out, s);
-  } else {
-    launch_task<kHeston>(task, seed, task_id, payoff_kind, n_steps, blocks,
-                         block_paths, threads, out, s);
-  }
+  cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(kUnit), args, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_combine(partial, nullptr, 1, blocks, units_per_block, out, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of one kernel that an SM holds at once (the occupancy calculator's
+// answer for kUnit-thread CTAs): the batch kernel if task_kernel is 0, else
+// the single-task kernel for payoff_kind. Returns a cudaError_t code.
+extern "C" int mc_ctas_per_sm(int task_kernel_of, int model_kind,
+                              int payoff_kind, int* ctas) {
+  if (ctas == nullptr || !valid_kinds(model_kind, payoff_kind)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* kernel;
+  if (task_kernel_of) {
+    kernel = model_kind == kBlackScholes ? task_kernel<kBlackScholes>(payoff_kind)
+                                         : task_kernel<kHeston>(payoff_kind);
+  } else {
+    kernel = model_kind == kBlackScholes
+                 ? reinterpret_cast<const void*>(&mc_batch_kernel<kBlackScholes>)
+                 : reinterpret_cast<const void*>(&mc_batch_kernel<kHeston>);
+  }
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kUnit, 0));
 }
 
 extern "C" const char* mc_error_string(int code) {

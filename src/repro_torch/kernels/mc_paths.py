@@ -6,7 +6,10 @@ of ``csrc/mc_paths.cu`` (the port of the reference's Pallas
 PyTorch version, which runs on any device and returns the same
 (T, blocks, 2) partial (sum payoff, sum payoff^2) per (task, path block).
 The CPU path and the on-card comparison use the plain version; on a CUDA
-tensor the main path always launches the kernel or raises.
+tensor the main path always launches the kernel or raises. The kernel
+simulates only the active path blocks, listed by
+:func:`active_block_offsets` from the host's path counts; the plain version
+simulates every block and masks.
 
 ``mc_moments_kernel_call`` launches the single-task kernel of the same
 source (the port of the reference's Pallas ``_mc_kernel``, whose task is
@@ -30,6 +33,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -48,22 +52,20 @@ from .prng import normal_pair
 __all__ = [
     "mc_moments_batch_kernel_call", "mc_moments_batch_ref",
     "mc_moments_kernel_call", "mc_moments_kernel_ref", "batch_path_stats",
-    "validate_blocking", "build", "launch_count", "reset_launch_count",
+    "validate_blocking", "active_block_offsets", "build", "launch_count",
+    "reset_launch_count", "last_launch_ctas", "units_launched", "ctas_per_sm",
     "KERNELS", "BLOCK_QUANTUM", "DEFAULT_BLOCK_PATHS",
 ]
 
 #: The kernels of ``csrc/mc_paths.cu``, by the name their launches count under.
 KERNELS = ("mc_moments_batch", "mc_moments_task")
 
-#: ``block_paths`` must be a whole number of 128-thread CUDA blocks.
+#: ``block_paths`` must be a whole number of the kernels' work unit: 128
+#: paths, one per thread of a 128-thread CTA.
 BLOCK_QUANTUM = 128
 
-#: Threads of a single-task kernel block: one path each up to 1024 paths.
-MAX_TASK_THREADS = 1024
-
-#: The one path-block default shared by every engine entry point. A
-#: 1024-path block gives each of 256 threads four paths; 65,536 calibration
-#: paths of a 93-task family make 5,952 blocks, enough to fill 132 SMs.
+#: The one path-block default shared by every engine entry point: the path
+#: block is the unit of the (T, blocks, 2) partials; each is 8 units.
 DEFAULT_BLOCK_PATHS = 1024
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mc_paths.cu"
@@ -85,6 +87,26 @@ def validate_blocking(n_paths: int, block_paths: int) -> int:
         raise ValueError(
             f"n_paths={n_paths} must be a multiple of block_paths={block_paths}")
     return n_paths // block_paths
+
+
+def active_block_offsets(n_active, block_paths: int) -> np.ndarray:
+    """The batch kernel's list of active path blocks, as (T + 1,) int32
+    prefix offsets.
+
+    Task t's active blocks, b = 0 .. ceil(n_active[t] / block_paths) - 1
+    (those with ``b * block_paths < n_active[t]``), are entries
+    ``offsets[t] .. offsets[t + 1] - 1`` of the flat list the kernel's grid
+    walks; entry a belongs to the last t with ``offsets[t] <= a``. Built on
+    the host from host counts, so a launch never reads the card.
+    """
+    n = np.asarray(n_active, dtype=np.int64).reshape(-1)
+    if n.size and n.min() < 0:
+        raise ValueError("path counts must be non-negative")
+    offsets = np.zeros(n.size + 1, dtype=np.int64)
+    np.cumsum(-(-n // block_paths), out=offsets[1:])
+    if offsets[-1] >= 2 ** 31:
+        raise ValueError(f"{offsets[-1]} active path blocks overflow int32")
+    return offsets.astype(np.int32)
 
 
 # --------------------------------------------------------------------------
@@ -229,16 +251,18 @@ class _KernelLibrary:
                     self.ptxas_log = out.with_suffix(".ptxas.txt").read_text()
                 lib = ctypes.CDLL(str(out))
                 ptr = ctypes.c_void_p
+                i32 = ctypes.c_int
                 lib.mc_moments_batch_launch.argtypes = [
-                    ptr, ptr, ptr, ptr, ctypes.c_uint32, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ptr, ptr]
-                lib.mc_moments_batch_launch.restype = ctypes.c_int
+                    ptr, ptr, ptr, ptr, ptr, ctypes.c_uint32, i32, i32, i32,
+                    i32, i32, i32, ptr, ptr, ptr]
+                lib.mc_moments_batch_launch.restype = i32
                 lib.mc_moments_task_launch.argtypes = [
                     ctypes.POINTER(ctypes.c_float), ctypes.c_uint32,
-                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ptr]
-                lib.mc_moments_task_launch.restype = ctypes.c_int
+                    ctypes.c_uint32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+                lib.mc_moments_task_launch.restype = i32
+                lib.mc_ctas_per_sm.argtypes = [i32, i32, i32,
+                                               ctypes.POINTER(i32)]
+                lib.mc_ctas_per_sm.restype = i32
                 lib.mc_error_string.argtypes = [ctypes.c_int]
                 lib.mc_error_string.restype = ctypes.c_char_p
                 self._lib = lib
@@ -248,6 +272,8 @@ class _KernelLibrary:
 _LIBRARY = _KernelLibrary(_SOURCE, _BUILD_DIR)
 _COUNT_LOCK = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
+_last_ctas = dict.fromkeys(KERNELS, 0)
+_units = dict.fromkeys(KERNELS, 0)
 
 
 def build() -> str:
@@ -263,15 +289,46 @@ def launch_count(kernel: str = "mc_moments_batch") -> int:
 
 
 def reset_launch_count() -> None:
-    """Set the launch count of every kernel to 0."""
+    """Set the launch and unit counts of every kernel to 0."""
     with _COUNT_LOCK:
         for name in KERNELS:
             _launches[name] = 0
+            _units[name] = 0
 
 
-def _count_launch(kernel: str) -> None:
+def _count_launch(kernel: str, ctas: int) -> None:
     with _COUNT_LOCK:
         _launches[kernel] += 1
+        _units[kernel] += ctas
+        _last_ctas[kernel] = ctas
+
+
+def last_launch_ctas(kernel: str = "mc_moments_batch") -> int:
+    """CTAs of the last launch of ``kernel``'s simulation grid (0 before
+    the first launch)."""
+    return _last_ctas[kernel]
+
+
+def units_launched(kernel: str = "mc_moments_batch") -> int:
+    """CTAs of ``kernel``'s simulation grid, one per :data:`BLOCK_QUANTUM`-
+    path unit, summed over its launches since the last
+    :func:`reset_launch_count`."""
+    return _units[kernel]
+
+
+def ctas_per_sm(kernel: str = "mc_moments_batch",
+                model_kind: str = "black-scholes", payoff: int = 0) -> int:
+    """CTAs of ``kernel`` (for the single-task kernel: of its ``payoff``
+    instance) that one SM of the current card holds at once."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    lib = _LIBRARY.get()
+    n = ctypes.c_int(0)
+    rc = lib.mc_ctas_per_sm(int(kernel == "mc_moments_task"),
+                            _MODEL_CODES[model_kind], int(payoff),
+                            ctypes.byref(n))
+    _raise_on_error(lib, rc, kernel)
+    return n.value
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -286,16 +343,21 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def mc_moments_batch_kernel_call(batch: TaskBatch, n_active: torch.Tensor,
-                                 seed: int, n_paths_max: int,
+def mc_moments_batch_kernel_call(batch: TaskBatch, n_active, seed: int,
+                                 n_paths_max: int,
                                  block_paths: int = DEFAULT_BLOCK_PATHS
                                  ) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.
 
-    ``n_active`` is a (T,) uint32 tensor of per-task path counts on the
-    batch's device; ``n_paths_max`` (a multiple of ``block_paths``) sets
-    the padded grid. Returns the (T, blocks, 2) float32 partials. Raises
-    unless every tensor is on a CUDA device.
+    ``n_active`` holds the T per-task path counts on the host (a sequence,
+    a numpy array or a CPU tensor): the active-block list is built from
+    them without reading the card, and uploaded with them in one copy that
+    does not synchronise.
+    ``n_paths_max`` (a multiple of ``block_paths``, at least every count)
+    sets the (T, blocks, 2) shape of the float32 partials it returns; the
+    slots of blocks past a task's count are exactly 0. Each 128-path unit
+    of an active block gets its own CTA. Raises unless the batch is on a
+    CUDA device.
     """
     device = batch.device
     if device.type != "cuda":
@@ -303,8 +365,9 @@ def mc_moments_batch_kernel_call(batch: TaskBatch, n_active: torch.Tensor,
                          "use mc_moments_batch_ref on the CPU")
     blocks = validate_blocking(n_paths_max, block_paths)
     T = batch.n_tasks
-    if not 1 <= T <= 65535:
-        raise ValueError(f"{T} tasks in one launch; the grid allows 1..65535")
+    if T < 1 or T * blocks >= 2 ** 31:
+        raise ValueError(f"{T} tasks x {blocks} blocks: need 1 <= T and "
+                         "T * blocks < 2**31")
     if n_paths_max >= 2 ** 32:
         raise ValueError(f"n_paths_max={n_paths_max} overflows uint32 path ids")
     if batch.model_kind not in _MODEL_CODES:
@@ -312,21 +375,43 @@ def mc_moments_batch_kernel_call(batch: TaskBatch, n_active: torch.Tensor,
     _check(batch.params, "params", torch.float32, (T, N_PARAMS), device)
     _check(batch.task_ids, "task_ids", torch.uint32, (T,), device)
     _check(batch.payoff_kinds, "payoff_kinds", torch.int32, (T,), device)
-    _check(n_active, "n_active", torch.uint32, (T,), device)
+    if isinstance(n_active, torch.Tensor):
+        if n_active.device.type != "cpu":
+            raise ValueError(f"n_active is on {n_active.device}: pass host "
+                             "counts, reading them from the card would sync")
+        n_active = n_active.numpy()
+    n_act = np.asarray(n_active)
+    if n_act.dtype.kind not in "iu":
+        raise TypeError(f"n_active has dtype {n_act.dtype}, expected integers")
+    if n_act.shape != (T,):
+        raise ValueError(f"n_active has shape {n_act.shape}, expected {(T,)}")
+    if n_act.min() < 0 or n_act.max() > n_paths_max:
+        raise ValueError(f"n_active must lie in [0, n_paths_max={n_paths_max}]")
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed={seed} must fit in uint32")
+    offsets = active_block_offsets(n_act, block_paths)
+    n_units = int(offsets[-1]) * (block_paths // BLOCK_QUANTUM)
+    if n_units >= 2 ** 31:
+        raise ValueError(f"{n_units} units overflow the grid")
     lib = _LIBRARY.get()
+    # n_active (uint32) then the offsets (int32, < 2**31): one upload, from
+    # pinned memory without a sync (the caching host allocator keeps the
+    # buffer until the copy on this stream is done)
+    counts = torch.from_numpy(np.concatenate(
+        [n_act.astype(np.uint32), offsets.astype(np.uint32)])).pin_memory().to(
+            device, non_blocking=True)
+    partial = torch.empty((n_units, 2), dtype=torch.float32, device=device)
     out = torch.empty((T, blocks, 2), dtype=torch.float32, device=device)
-    threads = 256 if block_paths % 256 == 0 else BLOCK_QUANTUM
     with torch.cuda.device(device):
         rc = lib.mc_moments_batch_launch(
             batch.params.data_ptr(), batch.task_ids.data_ptr(),
-            batch.payoff_kinds.data_ptr(), n_active.data_ptr(), int(seed),
-            _MODEL_CODES[batch.model_kind], T, batch.n_steps, blocks,
-            block_paths, threads, out.data_ptr(),
+            batch.payoff_kinds.data_ptr(), counts.data_ptr(),
+            counts[T:].data_ptr(), int(seed), _MODEL_CODES[batch.model_kind],
+            T, batch.n_steps, blocks, block_paths, n_units,
+            partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(lib, rc, "mc_moments_batch")
-    _count_launch("mc_moments_batch")
+    _count_launch("mc_moments_batch", n_units)
     return out
 
 
@@ -343,9 +428,9 @@ def mc_moments_kernel_call(task: PricingTask, n_paths: int, seed: int,
     """Launch the single-task CUDA kernel on PyTorch's current stream.
 
     Simulates paths ``0 .. n_paths`` of ``task`` (``n_paths`` a multiple of
-    ``block_paths``) and returns the (blocks, 2) float32 partials
-    (sum payoff, sum payoff^2) on ``device``. Raises unless ``device`` is
-    a CUDA device.
+    ``block_paths``), one CTA per 128-path unit, and returns the (blocks, 2)
+    float32 partials (sum payoff, sum payoff^2) on ``device``. Raises
+    unless ``device`` is a CUDA device.
     """
     blocks = validate_blocking(n_paths, block_paths)
     device = resolve_device(device)
@@ -364,14 +449,15 @@ def mc_moments_kernel_call(task: PricingTask, n_paths: int, seed: int,
     row = TaskBatch.from_tasks([task], "cpu")
     scalars = (ctypes.c_float * N_PARAMS)(*row.params[0].tolist())
     lib = _LIBRARY.get()
+    units = n_paths // BLOCK_QUANTUM
+    partial = torch.empty((units, 2), dtype=torch.float32, device=device)
     out = torch.empty((blocks, 2), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         rc = lib.mc_moments_task_launch(
             scalars, int(seed), int(task.task_id),
             _MODEL_CODES[row.model_kind], int(task.option.payoff),
-            task.n_steps, blocks, block_paths,
-            min(block_paths, MAX_TASK_THREADS), out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+            task.n_steps, blocks, block_paths, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(lib, rc, "mc_moments_task")
-    _count_launch("mc_moments_task")
+    _count_launch("mc_moments_task", units)
     return out

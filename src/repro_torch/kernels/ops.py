@@ -21,10 +21,11 @@ def mc_moments_batch(batch: TaskBatch, n_active, seed: int = 0,
                      block_paths: int | None = None):
     """Per-task (sum payoff, sum payoff^2) for a task family, one launch.
 
-    ``n_active`` is a per-task path-count sequence; it is padded up to a
-    whole number of path blocks (masked inside the kernel), and the
-    (T, blocks, 2) partials are summed over blocks here. Returns two (T,)
-    float32 tensors on the batch's device.
+    ``n_active`` is a per-task path-count sequence. The partials span the
+    largest count in whole path blocks: the kernel simulates only each
+    task's own active blocks (the plain version simulates all and masks),
+    and the (T, blocks, 2) partials are summed over blocks here. Returns
+    two (T,) float32 tensors on the batch's device.
     """
     if block_paths is None:
         block_paths = mc_paths.DEFAULT_BLOCK_PATHS
@@ -36,13 +37,14 @@ def mc_moments_batch(batch: TaskBatch, n_active, seed: int = 0,
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed={seed} must fit in uint32")
     n_pad = max(-(-int(n_act.max()) // block_paths), 1) * block_paths
-    n_act_t = torch.from_numpy(n_act.astype(np.uint32)).to(batch.device)
     if batch.device.type == "cuda":
+        # host counts: the wrapper lists the active blocks without a sync
         partial = mc_paths.mc_moments_batch_kernel_call(
-            batch, n_act_t, seed, n_pad, block_paths)
+            batch, n_act, seed, n_pad, block_paths)
     elif batch.device.type == "cpu":
-        partial = mc_paths.mc_moments_batch_ref(batch, n_act_t, seed, n_pad,
-                                                block_paths)
+        partial = mc_paths.mc_moments_batch_ref(
+            batch, torch.from_numpy(n_act.astype(np.uint32)), seed, n_pad,
+            block_paths)
     else:
         raise ValueError(f"no Monte Carlo engine for device {batch.device}")
     return partial[:, :, 0].sum(dim=1), partial[:, :, 1].sum(dim=1)

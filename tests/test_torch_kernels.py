@@ -166,11 +166,28 @@ def test_kernel_call_refuses_cpu_tensors():
     tasks = workload.table1_workload(seed=3, n_steps=8, categories=[("BS-A", 2)])
     batch = TaskBatch.from_tasks(tasks, "cpu")
     before = mc_paths.launch_count()
+    units = mc_paths.units_launched()
     with pytest.raises(ValueError, match="CUDA tensors"):
         mc_paths.mc_moments_batch_kernel_call(
             batch, torch.tensor([1024, 1024], dtype=torch.uint32), 0, 1024)
     ops.mc_moments_batch(batch, [1024, 512], seed=0)
     assert mc_paths.launch_count() == before
+    assert mc_paths.units_launched() == units
+
+
+def test_launch_counts_sum_units_and_reset():
+    """A launch adds one to its kernel's count and its grid's units to the
+    unit total; a reset sets both to 0 for every kernel."""
+    mc_paths.reset_launch_count()
+    mc_paths._count_launch("mc_moments_batch", 40)
+    mc_paths._count_launch("mc_moments_batch", 8)
+    mc_paths._count_launch("mc_moments_task", 512)
+    assert mc_paths.launch_count() == 2 and mc_paths.units_launched() == 48
+    assert mc_paths.last_launch_ctas() == 8
+    assert mc_paths.units_launched("mc_moments_task") == 512
+    mc_paths.reset_launch_count()
+    assert all(mc_paths.launch_count(k) == 0 and mc_paths.units_launched(k) == 0
+               for k in mc_paths.KERNELS)
 
 
 def test_ops_validates_inputs():
@@ -216,3 +233,57 @@ def test_task_kernel_call_refuses_cpu():
     with pytest.raises(ValueError, match="needs a CUDA device"):
         mc_paths.mc_moments_kernel_call(task, 1024, 0, 256, device="cpu")
     assert mc_paths.launch_count("mc_moments_task") == before
+
+
+# Host path counts of the active-block list cases: zero counts, exact
+# multiples of the path block, one task far longer than the rest, one task.
+_ACTIVE_CASES = {
+    "zero_counts": [0, 1500, 0, 1024, 0],
+    "exact_multiples": [1024, 2048, 4096, 3072],
+    "long_tail": [4096, 100, 4_194_304, 3000, 1],
+    "one_task": [5000],
+}
+
+
+@pytest.mark.parametrize("block_paths", [128, 1024])
+@pytest.mark.parametrize("case", list(_ACTIVE_CASES))
+def test_active_block_offsets_list_each_active_block_once(case, block_paths):
+    """Every (t, b) with b * block_paths < n_active[t] is one entry of the
+    list, found as the kernel finds it (the last t whose offset is <= the
+    entry), and nothing else is."""
+    n_active = np.asarray(_ACTIVE_CASES[case], np.uint32)
+    offsets = mc_paths.active_block_offsets(n_active, block_paths)
+    assert offsets.dtype == np.int32 and offsets.shape == (n_active.size + 1,)
+    assert offsets[0] == 0 and (np.diff(offsets) >= 0).all()
+    entries = np.arange(int(offsets[-1]))
+    t = np.searchsorted(offsets, entries, side="right") - 1
+    listed = list(zip(t.tolist(), (entries - offsets[t]).tolist()))
+    want = [(k, b) for k, n in enumerate(n_active.tolist())
+            for b in range(-(-n // block_paths))]
+    assert sorted(listed) == want and len(set(listed)) == len(listed)
+    assert all(b * block_paths < int(n_active[k]) for k, b in listed)
+
+
+def test_active_block_offsets_refuse_negative_counts():
+    with pytest.raises(ValueError, match="non-negative"):
+        mc_paths.active_block_offsets([1024, -1], 1024)
+
+
+@pytest.mark.parametrize("group_idx", [0, 1], ids=["bs", "heston"])
+def test_plain_partials_exactly_zero_in_inactive_slots(group_idx):
+    """The plain version, which simulates every block and masks, writes
+    exactly 0 where the kernel's list has no block; the active slots of a
+    task with paths hold its sums."""
+    tasks = workload.table1_workload(seed=31, n_steps=8, categories=_CATS)
+    _key, group = group_by_launch(tasks)[group_idx]
+    sub = [t for _, t in group][:4]
+    n_active = np.asarray([0, 1025, 4096, 1][:len(sub)], np.uint32)
+    got = mc_paths.mc_moments_batch_ref(
+        TaskBatch.from_tasks(sub, "cpu"), torch.from_numpy(n_active), 5, 4096,
+        1024).numpy()
+    active = np.diff(mc_paths.active_block_offsets(n_active, 1024))
+    for t, n_blocks in enumerate(active.tolist()):
+        assert (got[t, n_blocks:] == 0.0).all()
+    # the squared sums of active blocks are positive wherever the sums are
+    live = got[:, :, 0] != 0
+    assert (got[:, :, 1][live] > 0).all()
